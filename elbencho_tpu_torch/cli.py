@@ -1,0 +1,45 @@
+"""CLI entry point of the port (reference: elbencho_tpu/cli.py,
+source/Main.cpp:14-69): parse args, validate, run the local coordinator.
+
+    python -m elbencho_tpu_torch -w -r -t 2 -b 16M -s 4g --iodepth 4 \\
+        --verify 7 --gpuids 0 --gpuverify [--gpudirect] /path/file
+"""
+
+from __future__ import annotations
+
+import sys
+
+from . import __version__
+from .config.args import ConfigError, build_arg_parser, parse_cli
+
+
+def main(argv: "list[str] | None" = None,
+         device: "str | None" = None) -> int:
+    """Run the benchmark. ``device`` overrides where the device contexts
+    live: None means the CUDA devices of --gpuids; "cpu" is for callers
+    that ask for the CPU explicitly (the tests)."""
+    try:
+        cfg, ns = parse_cli(argv)
+    except ConfigError as err:
+        print(f"ERROR: {err}", file=sys.stderr)
+        return 1
+    if ns.version:
+        print(f"elbencho-tpu-torch {__version__} (PyTorch/CUDA device "
+              f"data path)")
+        return 0
+    if not cfg.paths:
+        build_arg_parser().print_help()
+        return 1
+    try:
+        cfg.derive()
+        cfg.check()
+    except (ConfigError, OSError) as err:
+        print(f"ERROR: {err}", file=sys.stderr)
+        return 1
+    cfg.device = device
+    from .coordinator import Coordinator
+    return Coordinator(cfg).main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

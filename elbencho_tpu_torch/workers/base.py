@@ -1,0 +1,119 @@
+"""Worker base class: per-worker stats container + interruption checks.
+
+Reference: elbencho_tpu/workers/base.py (source/workers/Worker.{h,cpp}):
+LiveOps counters, stonewall snapshots for first-done results, latency
+histograms, per-phase elapsed time, the interruption flag.
+"""
+
+from __future__ import annotations
+
+import time
+
+from ..stats.latency_histogram import LatencyHistogram
+from .shared import WorkerInterruptedException, WorkersSharedData
+
+INTERRUPT_CHECK_INTERVAL = 128  # ops between interruption checks
+
+
+class LiveOps:
+    """entries/bytes/iops counter triple (reference: LiveOps, Worker.h)."""
+
+    __slots__ = ("num_entries_done", "num_bytes_done", "num_iops_done")
+
+    def __init__(self):
+        self.reset()
+
+    def snapshot(self) -> "LiveOps":
+        s = LiveOps()
+        s.num_entries_done = self.num_entries_done
+        s.num_bytes_done = self.num_bytes_done
+        s.num_iops_done = self.num_iops_done
+        return s
+
+    def reset(self) -> None:
+        self.num_entries_done = 0
+        self.num_bytes_done = 0
+        self.num_iops_done = 0
+
+
+class Worker:
+    def __init__(self, shared: WorkersSharedData, rank: int):
+        self.shared = shared
+        self.rank = rank
+        self.live_ops = LiveOps()
+        self.stonewall_ops = LiveOps()
+        self.stonewall_taken = False
+        self.iops_latency_histo = LatencyHistogram()
+        self.entries_latency_histo = LatencyHistogram()
+        self.elapsed_usec_vec: "list[int]" = []
+        self.stonewall_elapsed_usec = 0
+        self.got_phase_work = True
+        self.is_interrupted = False
+        self._ops_since_check = 0
+        self.gpu_transfer_bytes = 0   # device ingest/egress accounting
+        self.gpu_transfer_usec = 0    # copy wall time (submit -> done)
+        self.gpu_dispatch_usec = 0    # host-side submit cost (the overhead
+                                      # --gpubudget bounds)
+
+    def reset_stats(self) -> None:
+        self.is_interrupted = False
+        self.live_ops.reset()
+        self.stonewall_ops.reset()
+        self.stonewall_taken = False
+        self.iops_latency_histo.reset()
+        self.entries_latency_histo.reset()
+        self.elapsed_usec_vec = []
+        self.stonewall_elapsed_usec = 0
+        self.got_phase_work = True
+        self._ops_since_check = 0
+        self.gpu_transfer_bytes = 0
+        self.gpu_transfer_usec = 0
+        self.gpu_dispatch_usec = 0
+
+    def create_stonewall_stats_if_triggered(self) -> None:
+        """Snapshot current counters when the first worker finished
+        (reference: createStoneWallStats, Worker.h:203)."""
+        if self.stonewall_taken or not self.shared.stonewall_triggered:
+            return
+        self.stonewall_ops = self.live_ops.snapshot()
+        self.stonewall_elapsed_usec = self.phase_elapsed_usec()
+        self.stonewall_taken = True
+
+    def finish_phase_stats(self) -> None:
+        """Called by the worker when its phase work is complete."""
+        if not self.stonewall_taken:
+            # first finisher: stonewall stats == final stats
+            self.stonewall_ops = self.live_ops.snapshot()
+            self.stonewall_elapsed_usec = self.phase_elapsed_usec()
+            self.stonewall_taken = True
+        self.elapsed_usec_vec.append(self.phase_elapsed_usec())
+
+    def phase_elapsed_usec(self) -> int:
+        return int((time.monotonic()
+                    - self.shared.phase_start_monotonic) * 1_000_000)
+
+    def interrupt_execution(self) -> None:
+        self.is_interrupted = True
+
+    def check_interruption_request(self) -> None:
+        """Cheap periodic check in hot loops; also the stonewall snapshot
+        point (reference: checkInterruptionRequest)."""
+        self._ops_since_check += 1
+        if self._ops_since_check < INTERRUPT_CHECK_INTERVAL:
+            return
+        self._ops_since_check = 0
+        self.create_stonewall_stats_if_triggered()
+        if self.is_interrupted or self.shared.interrupt_requested:
+            raise WorkerInterruptedException("worker interruption requested")
+
+    def run(self) -> None:
+        raise NotImplementedError
+
+    def thread_start(self) -> None:
+        try:
+            self.run()
+        except Exception as err:  # noqa: BLE001 - worker errors are reported
+            from ..toolkits import logger
+            logger.log_error(f"Worker {self.rank} terminated on error: "
+                             f"{type(err).__name__}: {err}")
+            self.shared.inc_num_workers_done_with_error(err)

@@ -1,0 +1,56 @@
+"""The port stands alone: no module of elbencho_tpu_torch, and not
+chip_smoke.py, imports JAX or anything of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "elbencho_tpu")
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO,
+                                                   "elbencho_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "__import__", "import_module") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_cli_loads_no_jax():
+    code = ("import sys, elbencho_tpu_torch.cli, "
+            "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify;"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'elbencho_tpu'));"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
