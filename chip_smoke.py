@@ -11,9 +11,14 @@ without printing a result otherwise. In order it:
 2. builds the fingerprint kernel (csrc/fingerprint.cu) with nvcc and holds
    it against its plain PyTorch version on the card, exactly (tolerance 0:
    addition mod 2^32 and xor do not depend on order), at several word
-   counts up to 64 Mi words, and checks that a flipped bit is caught; times
-   the kernel, its plain version and torch.sum (the sum half only: no
-   PyTorch call computes the xor reduction) at the main path's 16 MiB block;
+   counts up to 64 Mi words and at word counts that straddle the edges of
+   the kernel's chunk plan at every 4-byte offset; checks that a flipped
+   bit is caught, that two threads on two streams get right results at
+   the same time, and (where torch.profiler traces the card) that a call
+   enqueues the kernel and nothing else; prints the compiler's register,
+   shared-memory and spill report; times the kernel, its plain version and
+   torch.sum (the sum half only: no PyTorch call computes the xor
+   reduction) at 1 to 256 MiB, the main path's 16 MiB block among them;
 3. drives the port's main path through its CLI on a 4 GiB file
    (-s 10g of the README's headline command, cut to fit the smoke's time):
    write+read with --verify and --gpuverify, a --gpudirect read, and a plain
@@ -39,6 +44,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +53,8 @@ MAIN_SIZE = 4 << 30            # -s 4g
 MAIN_BLOCKS = MAIN_SIZE // MAIN_BLOCK
 HBM_BYTES_PER_SEC = 3.35e12    # H100 SXM device memory, NVIDIA data sheet
 KERNEL_WORD_COUNTS = (1, 127, 128, 4097, 262144, 4 << 20, 64 << 20)
+TIMING_MIB = (1, 4, 16, 64, 256)  # block sizes the kernel is timed at
+TIMING_POOL = 512 << 20       # distinct bytes the timing rotates over (> L2)
 INTEGRITY_ERROR = "on-device integrity check failed"
 
 
@@ -100,51 +108,186 @@ def cuda_ms(fn, reps: int) -> "tuple[float, float]":
     return statistics.median(rounds), statistics.median(host_rounds)
 
 
+MASK = 0xFFFFFFFF
+
+
+def rand_words(n: int, gen, dev):
+    import torch
+    return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                         generator=gen, device=dev)
+
+
+def check(words, what: str) -> "tuple[int, list[int]]":
+    """Hold the kernel against its plain version on `words`, exactly."""
+    from elbencho_tpu_torch.ops.verify import (fingerprint_u32,
+                                               fingerprint_u32_plain)
+    got_v = [v & MASK for v in fingerprint_u32(words).tolist()]
+    want_v = [v & MASK for v in fingerprint_u32_plain(words).tolist()]
+    err = max(abs(g - w) for g, w in zip(got_v, want_v))
+    print(f"  {what:<40} kernel (sum={got_v[0]:#010x}, "
+          f"xor={got_v[1]:#010x})  plain equal: {err == 0}")
+    if err:
+        fail(f"fingerprint kernel != plain version for {what}: "
+             f"{got_v} vs {want_v}")
+    return err, got_v
+
+
+def check_chunk_edges(dev, gen) -> int:
+    """Word counts one below and one above the edges of the kernel's
+    plan (one step of a block, and the whole persistent grid's step:
+    grid x threads x loads x 4 words), and a few words, at every 4-byte
+    offset from a 16-byte boundary."""
+    from elbencho_tpu_torch.ops.verify import TILE_VECS, launch_shape
+    sms, per_sm = launch_shape(dev.index)
+    edge = sms * per_sm * TILE_VECS * 4
+    max_err = 0
+    for n in (0, 2, 3, 5, 4 * TILE_VECS - 1, 4 * TILE_VECS + 1, edge - 1,
+              edge + 1):
+        base = rand_words(n + 3, gen, dev)
+        if base.data_ptr() % 16:
+            fail("a fresh device allocation is not 16-byte aligned")
+        for k in range(4):
+            max_err = max(max_err, check(
+                base[k:k + n], f"random, {n} words, {4 * k}-byte offset")[0])
+    return max_err
+
+
+def check_two_streams(dev, gen) -> None:
+    """Two threads on two CUDA streams fingerprint two different 16 MiB
+    blocks 100 times each at the same time: each stream's kernels wait
+    behind a device sleep, so both queues drain together. Every result
+    must equal that block's plain fingerprint (the kernel's scratch is
+    per stream)."""
+    import torch
+    from elbencho_tpu_torch.ops.verify import (fingerprint_u32,
+                                               fingerprint_u32_plain)
+    blocks = [rand_words(MAIN_BLOCK // 4, gen, dev) for _ in range(2)]
+    wants = [[v & MASK for v in fingerprint_u32_plain(b).tolist()]
+             for b in blocks]
+    if wants[0] == wants[1]:
+        fail("the two blocks of the stream check have equal fingerprints")
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    results, errors = [None, None], []
+
+    def worker(k):
+        try:
+            with torch.cuda.stream(streams[k]):
+                torch.cuda._sleep(100_000_000)
+                start.wait()
+                outs = [fingerprint_u32(blocks[k]) for _ in range(100)]
+                results[k] = torch.stack(outs).cpu()
+        except BaseException as err:  # reported below, on the main thread
+            errors.append(err)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"the two-stream check raised {errors[0]!r}")
+    for k in range(2):
+        got = {tuple(v & MASK for v in row) for row in results[k].tolist()}
+        if got != {tuple(wants[k])}:
+            fail(f"two-stream check: stream {k} gave {sorted(got)}, want "
+                 f"{wants[k]}")
+    print("  two streams, 2 x 100 concurrent calls on two 16 MiB blocks: "
+          "every result equals its block's plain fingerprint")
+
+
+def show_one_launch_per_call(words) -> None:
+    """Trace 10 calls with torch.profiler: each must enqueue the kernel
+    and nothing else on the device (no zero fill)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    fingerprint_u32(words)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fingerprint_u32(words)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = sum("fingerprint_u32_kernel" in n for n in names)
+    others = sorted({n for n in names if "fingerprint_u32_kernel" not in n})
+    if not names:
+        fail("torch.profiler recorded no device activity for 10 calls, so "
+             "one launch per call is not shown")
+    print(f"  device activity of 10 calls (torch.profiler): {ours} "
+          f"fingerprint kernels, other device work: {others or 'none'}")
+    if ours != 10 or others:
+        fail(f"10 calls enqueued {ours} fingerprint kernels and {others}")
+
+
+def time_sizes(dev, gen) -> "dict[int, dict]":
+    """Kernel, torch.sum (int64) and plain device ms per call at each
+    size in TIMING_MIB, rotating over distinct blocks of one 512 MiB
+    pool so that each launch reads device memory, not L2."""
+    import torch
+    from elbencho_tpu_torch.ops.verify import (fingerprint_u32,
+                                               fingerprint_u32_plain)
+    pool = rand_words(TIMING_POOL // 4, gen, dev)
+    rows = {}
+    print("fingerprint_u32 by block size (device ms per call, bound = "
+          "bytes / 3.35 TB/s; torch.sum int64 is the sum half only: no "
+          "PyTorch call computes the xor reduction):")
+    for mib in TIMING_MIB:
+        n = (mib << 20) // 4
+        k = TIMING_POOL // (mib << 20)
+        blocks = [pool[i * n:(i + 1) * n] for i in range(k)]
+        ms, host_ms = cuda_ms(lambda i=0: fingerprint_u32(blocks[i % k]),
+                              200)
+        library_ms, _ = cuda_ms(
+            lambda i=0: torch.sum(blocks[i % k], dtype=torch.int64), 100)
+        plain_ms, _ = cuda_ms(
+            lambda i=0: fingerprint_u32_plain(blocks[i % k]), 10)
+        bound_ms = (mib << 20) / HBM_BYTES_PER_SEC * 1e3
+        rows[mib] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms}
+        print(f"  {mib:>4} MiB ({k:>3} distinct blocks): kernel {ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of the "
+              f"bound, {(mib << 20) / ms / 1e6:.1f} GB/s; torch.sum int64 "
+              f"{library_ms:.4f} ms; plain {plain_ms:.4f} ms; the "
+              f"wrapper's host cost {host_ms * 1e3:.1f} us per call")
+    del pool, blocks
+    return rows
+
+
 def kernel_phase(dev) -> dict:
     import torch
     from elbencho_tpu_torch.ops.cuda_build import build_reports
     from elbencho_tpu_torch.ops.verify import (expected_fingerprint_host,
-                                               fingerprint_u32,
-                                               fingerprint_u32_plain,
-                                               load_kernel)
+                                               fingerprint_plan,
+                                               launch_shape, load_kernel)
     t0 = time.monotonic()
     load_kernel()
     build_secs, report = build_reports["fingerprint"]
     print(f"kernel build: fingerprint.cu {build_secs:.1f} s "
           f"(load {time.monotonic() - t0:.1f} s)")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
-    mask = 0xFFFFFFFF
-
-    def check(words, what):
-        got = fingerprint_u32(words)
-        want = fingerprint_u32_plain(words)
-        got_v = [v & mask for v in got.tolist()]
-        want_v = [v & mask for v in want.tolist()]
-        err = max(abs(g - w) for g, w in zip(got_v, want_v))
-        print(f"  {what:<34} kernel (sum={got_v[0]:#010x}, "
-              f"xor={got_v[1]:#010x})  plain equal: {err == 0}")
-        if err:
-            fail(f"fingerprint kernel != plain version for {what}: "
-                 f"{got_v} vs {want_v}")
-        return err, got_v
+    sms, per_sm = launch_shape(dev.index)
+    print(f"  persistent grid: {sms} SMs x {per_sm} blocks per SM; plan at "
+          f"16 MiB: {fingerprint_plan(MAIN_BLOCK // 4, 0, sms, per_sm)}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     max_err = 0
     print("fingerprint kernel vs plain version (tolerance 0):")
     for n in KERNEL_WORD_COUNTS:
-        x = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
-                          generator=gen, device=dev)
-        max_err = max(max_err, check(x, f"random, {n} words")[0])
+        max_err = max(max_err, check(rand_words(n, gen, dev),
+                                     f"random, {n} words")[0])
     for n in (4097, 4 << 20):
         for name, fill in (("all-ones", -1), ("all-zeros", 0)):
             x = torch.full((n,), fill, dtype=torch.int32, device=dev)
             max_err = max(max_err, check(x, f"{name}, {n} words")[0])
-    base = torch.randint(-(1 << 31), 1 << 31, (4098,), dtype=torch.int32,
-                         generator=gen, device=dev)
+    base = rand_words(4098, gen, dev)
     max_err = max(max_err, check(base[1:], "4097 words, 4-byte offset")[0])
+    max_err = max(max_err, check_chunk_edges(dev, gen))
 
     # a flipped bit must change the fingerprint
     from elbencho_tpu_torch.ops.fill import verify_pattern_block_u32
@@ -160,36 +303,23 @@ def kernel_phase(dev) -> dict:
         fail("a flipped bit was not caught by the fingerprint")
     print("  flipped bit caught: sum and xor both changed")
 
-    # timing at the main path's block: rotate over 8 distinct 16 MiB
-    # blocks (128 MiB > the 50 MB L2) so each launch reads device memory
-    n = MAIN_BLOCK // 4
-    blocks = [torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
-                            generator=gen, device=dev) for _ in range(8)]
-    ms, host_ms = cuda_ms(lambda i=0: fingerprint_u32(blocks[i % 8]), 200)
-    plain_ms, _ = cuda_ms(
-        lambda i=0: fingerprint_u32_plain(blocks[i % 8]), 20)
-    library_ms, _ = cuda_ms(
-        lambda i=0: torch.sum(blocks[i % 8], dtype=torch.int64), 200)
-    bound_ms = MAIN_BLOCK / HBM_BYTES_PER_SEC * 1e3
+    check_two_streams(dev, gen)
+    show_one_launch_per_call(block)
+    rows = time_sizes(dev, gen)
     host_secs = []
     for k in range(5):
         t = time.perf_counter()
         expected_fingerprint_host(k * MAIN_BLOCK, MAIN_BLOCK, 7)
         host_secs.append(time.perf_counter() - t)
-    print(f"fingerprint_u32 at 16 MiB: kernel {ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms (bytes / 3.35 TB/s), plain {plain_ms:.4f} ms, "
-          f"torch.sum int64 {library_ms:.4f} ms (the sum half only: no "
-          f"PyTorch call computes the xor reduction), kernel "
-          f"rate {MAIN_BLOCK / ms / 1e6:.1f} GB/s; the wrapper's host "
-          f"cost {host_ms * 1e3:.1f} us per call")
     print(f"expected_fingerprint_host at 16 MiB (host): "
           f"{statistics.median(host_secs) * 1e3:.2f} ms median of 5")
+    main = rows[MAIN_BLOCK >> 20]
     return {"name": "fingerprint_u32", "route": "cuda",
             "source": "elbencho_tpu_torch/csrc/fingerprint.cu",
             "replaces": "elbencho_tpu/ops/verify.py:39",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["library_ms"]}
 
 
 def check_registered_slot(dev) -> None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,9 +82,54 @@ def fingerprint_u32_plain(words: torch.Tensor) -> torch.Tensor:
     return torch.stack([_as_int32_bits(s), x[0]])
 
 
+#: vectors (16 bytes each) that one block of csrc/fingerprint.cu reads per
+#: step: kThreads (256) threads times kUnroll (4) loads each. The plan
+#: rounds each block's chunk to whole steps, so only the last block has a
+#: ragged one; the kernel is exact for any chunk. load_kernel checks that
+#: the built library's kTile agrees.
+TILE_VECS = 256 * 4
+
+
+class FingerprintPlan(NamedTuple):
+    """How the kernel cuts n words: block 0 adds the ``head`` words before
+    the first 16-byte boundary and the ``tail`` words after the body; the
+    body's ``n_vec`` 16-byte vectors go to ``grid`` blocks, block b taking
+    vectors [b * chunk, min((b + 1) * chunk, n_vec))."""
+    head: int
+    n_vec: int
+    chunk: int
+    grid: int
+    tail: int
+
+
+def fingerprint_plan(n_words: int, addr_mod16: int, sm_count: int,
+                     blocks_per_sm: int) -> FingerprintPlan:
+    """The partition of [0, n_words) for words starting at an address
+    that is ``addr_mod16`` modulo 16, on a persistent grid of at most
+    ``sm_count * blocks_per_sm`` blocks (as many as fit on the card at
+    once), each taking one contiguous chunk of whole steps."""
+    if addr_mod16 not in (0, 4, 8, 12):
+        raise ValueError(f"fingerprint_plan: words must be 4-byte aligned, "
+                         f"address mod 16 is {addr_mod16}")
+    if n_words < 0 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"fingerprint_plan: bad arguments {n_words}, "
+                         f"{sm_count}, {blocks_per_sm}")
+    head = min(n_words, ((16 - addr_mod16) & 15) >> 2)
+    n_vec = (n_words - head) >> 2
+    per_block = -(-n_vec // (sm_count * blocks_per_sm))
+    chunk = max(1, -(-per_block // TILE_VECS)) * TILE_VECS
+    return FingerprintPlan(head=head, n_vec=n_vec, chunk=chunk,
+                           grid=max(1, -(-n_vec // chunk)),
+                           tail=n_words - head - 4 * n_vec)
+
+
 _kernel_lock = threading.Lock()
 _kernel = None
-_sm_counts: "dict[int, int]" = {}
+#: device index -> (SMs, blocks of the kernel per SM)
+_launch_shapes: "dict[int, tuple[int, int]]" = {}
+_scratch_lock = threading.Lock()
+#: (device index, stream id) -> that stream's scratch (counter + partials)
+_scratches: "dict[tuple[int, int], torch.Tensor]" = {}
 
 
 def load_kernel():
@@ -93,31 +139,61 @@ def load_kernel():
     with _kernel_lock:
         if _kernel is None:
             from .cuda_build import load_library
-            fn = load_library("fingerprint").fingerprint_u32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib = load_library("fingerprint")
+            lib.fingerprint_u32_tile_vecs.restype = ctypes.c_int
+            tile = lib.fingerprint_u32_tile_vecs()
+            if tile != TILE_VECS:
+                raise RuntimeError(f"fingerprint_u32: the kernel's step is "
+                                   f"{tile} vectors, the plan's {TILE_VECS}")
+            fn = lib.fingerprint_u32
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _kernel = fn
         return _kernel
 
 
-def _grid_size(device: torch.device, n_words: int) -> int:
-    """About 4 blocks per SM, fewer when the block is small (256 threads
-    of 4 words each per block)."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    sms = _sm_counts.get(idx)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _sm_counts[idx] = sms
-    return max(1, min(4 * sms, -(-n_words // 1024)))
+def launch_shape(device_index: int) -> "tuple[int, int]":
+    """(SMs, blocks of the kernel that fit on one SM) of a CUDA device,
+    asked once per device."""
+    shape = _launch_shapes.get(device_index)
+    if shape is None:
+        from .cuda_build import load_library
+        query = load_library("fingerprint").fingerprint_u32_blocks_per_sm
+        query.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        query.restype = ctypes.c_int
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = query(ctypes.byref(blocks))
+        if err or blocks.value < 1:
+            raise RuntimeError(f"fingerprint_u32: occupancy query failed "
+                               f"(cudaError {err}, {blocks.value} blocks)")
+        shape = _launch_shapes[device_index] = (sms, blocks.value)
+    return shape
+
+
+def stream_scratch(device_index: int, stream_id: int, make):
+    """The kernel's scratch for one (device, stream), made by ``make()``
+    at first use and kept. Launches on one stream run in order, so one
+    scratch per stream is free of races; two streams never share one."""
+    key = (device_index, stream_id)
+    with _scratch_lock:
+        buf = _scratches.get(key)
+        if buf is None:
+            buf = _scratches[key] = make()
+        return buf
 
 
 def fingerprint_u32(words: torch.Tensor) -> torch.Tensor:
     """(sum mod 2^32, xor) of a contiguous 1-D int32 tensor of words, as
     a (2,) int32 tensor of uint32 bits. A CUDA tensor goes through the
-    CUDA kernel on the current stream (no synchronisation); a CPU tensor
-    through the plain version. Any other device raises."""
+    CUDA kernel on the current stream, one launch and no synchronisation
+    (the first call on a stream also zero-fills that stream's scratch,
+    once); a CPU tensor through the plain version. Any other device
+    raises."""
     if words.dtype != torch.int32 or words.dim() != 1:
         raise ValueError(f"fingerprint_u32 takes a 1-D int32 tensor, got "
                          f"{words.dtype} of shape {tuple(words.shape)}")
@@ -131,10 +207,17 @@ def fingerprint_u32(words: torch.Tensor) -> torch.Tensor:
     if words.data_ptr() % 4:
         raise ValueError("fingerprint_u32 takes a 4-byte aligned tensor")
     kernel = load_kernel()
-    out = torch.zeros(2, dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = kernel(words.data_ptr(), words.numel(), out.data_ptr(),
-                 _grid_size(words.device, words.numel()), stream)
+    dev = words.device
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms, per_sm = launch_shape(idx)
+    plan = fingerprint_plan(words.numel(), words.data_ptr() % 16, sms, per_sm)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = stream_scratch(idx, stream, lambda: torch.zeros(
+        2 + 2 * sms * per_sm, dtype=torch.int32, device=dev))
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    err = kernel(words.data_ptr(), plan.head, plan.n_vec, plan.chunk,
+                 plan.grid, plan.tail, out.data_ptr(), scratch.data_ptr(),
+                 stream)
     if err:
         raise RuntimeError(f"fingerprint_u32 kernel launch failed "
                            f"(cudaError {err})")

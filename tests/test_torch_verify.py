@@ -142,3 +142,127 @@ def test_verify_block_on_device_raises_the_jax_error_text():
         jax_verify.verify_block_on_device(jnp.asarray(bad), offset, length,
                                           salt, use_pallas=False)
     assert str(port_err.value) == str(jax_err.value)
+
+
+# --- the kernel's chunk plan (ops/verify.py::fingerprint_plan) -------------
+
+def _plan_ranges(plan, n):
+    """[lo, hi) word ranges of the plan, in the kernel's order: the head,
+    one range per block, the tail."""
+    body = plan.head + 4 * plan.n_vec
+    ranges = [(0, plan.head)]
+    for b in range(plan.grid):
+        ranges.append((plan.head + 4 * b * plan.chunk,
+                       plan.head + 4 * min((b + 1) * plan.chunk,
+                                           plan.n_vec)))
+    ranges.append((body, body + plan.tail))
+    return ranges
+
+
+def assert_plan_covers_every_word_once(n, addr, sms, per_sm):
+    """The plan's head, block chunks and tail cover [0, n) exactly once,
+    with no idle block and the body on a 16-byte boundary."""
+    plan = port_verify.fingerprint_plan(n, addr, sms, per_sm)
+    assert 1 <= plan.grid <= sms * per_sm
+    assert plan.chunk % port_verify.TILE_VECS == 0
+    assert 0 <= plan.head <= 3 and 0 <= plan.tail <= 3
+    if n > plan.head:   # the body starts on a 16-byte boundary
+        assert (addr + 4 * plan.head) % 16 == 0
+    ranges = _plan_ranges(plan, n)
+    assert all(0 <= lo <= hi <= n for lo, hi in ranges)
+    # no block is idle, unless it is the only one
+    assert all(lo < hi for lo, hi in ranges[2:-1])
+    # count coverage over the segments between the ranges' edges, so the
+    # counter stays small for 2^26 words
+    edges = np.unique(np.array([0, n] + [e for r in ranges for e in r]))
+    counts = np.zeros(max(len(edges) - 1, 0), dtype=np.int64)
+    for lo, hi in ranges:
+        counts[np.searchsorted(edges, lo):np.searchsorted(edges, hi)] += 1
+    assert np.all(counts == 1)
+
+
+_STEP_WORDS = 4 * port_verify.TILE_VECS
+
+
+@pytest.mark.parametrize("n", [
+    0, 1, 3, 4, 7, _STEP_WORDS - 1, _STEP_WORDS + 3,
+    132 * 8 * _STEP_WORDS - 1, 132 * 8 * _STEP_WORDS + 5, 16 << 18,
+    (1 << 26) - 1, 1 << 26])
+@pytest.mark.parametrize("addr", [0, 4, 8, 12])
+@pytest.mark.parametrize("sms,per_sm", [(1, 1), (7, 4), (132, 8)])
+def test_plan_covers_every_word_exactly_once(n, addr, sms, per_sm):
+    assert_plan_covers_every_word_once(n, addr, sms, per_sm)
+
+
+@pytest.mark.parametrize("args", [
+    (16, 2, 1, 1), (16, 1, 1, 1), (-1, 0, 1, 1), (16, 0, 0, 1),
+    (16, 0, 1, 0)])
+def test_plan_rejects_bad_arguments(args):
+    with pytest.raises(ValueError, match="fingerprint_plan"):
+        port_verify.fingerprint_plan(*args)
+
+
+def _walk_plan(words_u32, plan):
+    """The kernel's arithmetic in numpy: each block's (sum, xor) partial
+    over its range (block 0 with the head and tail), then the last
+    block's fold of all partials."""
+    ranges = _plan_ranges(plan, len(words_u32))
+    head, tail = ranges[0], ranges[-1]
+    partials = []
+    for b, (lo, hi) in enumerate(ranges[1:-1]):
+        seg = words_u32[lo:hi]
+        if b == 0:
+            seg = np.concatenate([words_u32[head[0]:head[1]], seg,
+                                  words_u32[tail[0]:tail[1]]])
+        partials.append((int(seg.sum(dtype=np.uint64)) & MASK,
+                         int(np.bitwise_xor.reduce(seg)) if len(seg) else 0))
+    s = x = 0
+    for ps, px in partials:
+        s = (s + ps) & MASK
+        x ^= px
+    return [s, x]
+
+
+WALK_CASES = [(n, offset_words, sms, per_sm)
+              for n in (0, 1, 3, 4, 5, _STEP_WORDS - 1, _STEP_WORDS + 5,
+                        7 * _STEP_WORDS + 3, 9 * _STEP_WORDS + 6)
+              for offset_words in (0, 1, 2, 3)
+              for sms, per_sm in ((1, 1), (7, 1), (3, 2))]
+WALK_DATA = np.random.default_rng(20261018).integers(
+    0, 1 << 32, size=9 * _STEP_WORDS + 16, dtype=np.uint32)
+
+
+@pytest.mark.parametrize("n,offset_words,sms,per_sm", WALK_CASES)
+def test_plan_walk_gives_the_plain_fingerprint(n, offset_words, sms, per_sm):
+    base = torch.from_numpy(WALK_DATA.view(np.int32).copy())
+    # the tensor's own address decides the head, as in the wrapper
+    start = offset_words + (-(base.data_ptr() // 4)) % 4
+    words = base[start:start + n]
+    plan = port_verify.fingerprint_plan(n, words.data_ptr() % 16, sms,
+                                        per_sm)
+    assert plan.head == min(n, (4 - offset_words) % 4)
+    words_u32 = words.numpy().view(np.uint32)
+    walked = _walk_plan(words_u32, plan)
+    assert walked == [v & MASK for v in
+                      port_verify.fingerprint_u32_plain(words).tolist()]
+    if n:
+        s, x = jax_verify.fingerprint_block_jnp(jnp.asarray(words_u32))
+        assert walked == [int(s), int(x)]
+        assert walked == _pallas_interpret(words_u32)
+
+
+def test_scratch_is_kept_per_device_and_stream(monkeypatch):
+    monkeypatch.setattr(port_verify, "_scratches", {})
+    made = []
+
+    def make():
+        made.append(torch.zeros(4, dtype=torch.int32))
+        return made[-1]
+
+    a = port_verify.stream_scratch(0, 1111, make)
+    assert port_verify.stream_scratch(0, 1111, make) is a
+    b = port_verify.stream_scratch(0, 2222, make)
+    c = port_verify.stream_scratch(1, 1111, make)
+    assert len({id(a), id(b), id(c)}) == 3 and len(made) == 3
+    assert port_verify.stream_scratch(1, 1111, make) is c
+    assert len(made) == 3
