@@ -18,20 +18,37 @@ without printing a result otherwise. In order it:
    enqueues the kernel and nothing else; prints the compiler's register,
    shared-memory and spill report; times the kernel, its plain version and
    torch.sum (the sum half only: no PyTorch call computes the xor
-   reduction) at 1 to 256 MiB, the main path's 16 MiB block among them;
+   reduction) at 4 KiB (the small-files pass's block) and at 1 to 256 MiB,
+   the main path's 16 MiB block among them;
 3. drives the port's main path through its CLI on a 4 GiB file
    (-s 10g of the README's headline command, cut to fit the smoke's time):
    write+read with --verify and --gpuverify, a --gpudirect read, and a plain
    write+read through the device fill pool; asserts bytes, ops, that the
    kernel ran once per block read under --gpuverify, and that --gpudirect
    copied from page-locked slots;
-4. flips one byte of the file and checks that the --gpuverify read fails,
+4. reads the same file with -b 1M, without and with --gpubatch 16, staged
+   and --gpudirect, and checks that the batch cuts the host->device copies
+   sixteenfold for the same bytes;
+5. flips one byte of the file and checks that the --gpuverify read fails,
    with the kernel's integrity error and after launching the kernel;
-5. prints the kernel line {"kernels": [...]} and, last, the result line
+6. drives the paths of the later slices through the CLI, each a main path
+   of its own with the kernel's launch count zeroed before it and read
+   after it: a write+read striped over four 1 GiB files; the sharded
+   training-ingest dataset of the JAX package's `--scenario epochs`
+   example (dir mode, 8 x 64 files of 16 MiB, docs/scenarios.md), with a
+   corrupted file that the verify read must refuse; and a lots-of-small-
+   files run (8 threads x 16 dirs x 512 files of 4 KiB through all six
+   phases, toward the reference's LOSF sweep in BASELINE.md, cut to fit
+   the smoke's time); each checks its entries, bytes, device copies and
+   kernel launches;
+7. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
-Any failed phase exits nonzero. The data file lives in _smoke_data/ of the
-checkout (listed in .gitignore) and is removed at the end.
+Any failed phase exits nonzero. The whole run, kernel build included, must
+end within TIME_LIMIT_S (1200 s) and fails past it; the passes are sized to
+take about half of that, so that later passes fit beside them. The data
+lives in _smoke_data/ of the checkout (listed in .gitignore) and is removed
+at the end.
 """
 
 from __future__ import annotations
@@ -52,10 +69,17 @@ MAIN_BLOCK = 16 << 20          # bytes per block on the main path (-b 16M)
 MAIN_SIZE = 4 << 30            # -s 4g
 MAIN_BLOCKS = MAIN_SIZE // MAIN_BLOCK
 HBM_BYTES_PER_SEC = 3.35e12    # H100 SXM device memory, NVIDIA data sheet
-KERNEL_WORD_COUNTS = (1, 127, 128, 4097, 262144, 4 << 20, 64 << 20)
-TIMING_MIB = (1, 4, 16, 64, 256)  # block sizes the kernel is timed at
+DATASET_FILES = 8 * 64          # -t 8 -n 1 -N 64 of 16 MiB: 8 GiB
+LOSF_FILES = 8 * 16 * 512      # -t 8 -n 16 -N 512 of 4 KiB
+TIME_LIMIT_S = 1200            # the whole run, kernel build included
+KERNEL_WORD_COUNTS = (1, 127, 128, 256, 1024, 4097, 262144, 4 << 20,
+                      64 << 20)
+# block sizes the kernel is timed at: the small-files pass's 4 KiB, 1-256 MiB
+TIMING_BYTES = (4 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20, 256 << 20)
 TIMING_POOL = 512 << 20       # distinct bytes the timing rotates over (> L2)
+TIMING_VIEWS = 4096           # at most this many distinct blocks per size
 INTEGRITY_ERROR = "on-device integrity check failed"
+PROFILE_MARGIN_S = 0.05        # idle host time at each end of a trace window
 
 
 class _TeeStderr(io.TextIOBase):
@@ -80,21 +104,22 @@ def fail(msg: str) -> None:
 
 def cuda_ms(fn, reps: int) -> "tuple[float, float]":
     """(device ms, host ms) per call of fn: medians over 3 rounds of
-    `reps` calls, after a warm-up. Each round is queued behind a ~0.1 s
-    device sleep, so the host has enqueued every call before the start
-    event runs: the CUDA events then time the device work alone, and the
-    host clock times the per-call launch cost."""
+    `reps` calls, after a warm-up; round r calls fn(r * reps + i) for
+    i < reps, so rounds take different blocks. Each round is queued
+    behind a ~0.1 s device sleep, so the host has enqueued every call
+    before the start event runs: the CUDA events then time the device
+    work alone, and the host clock times the per-call launch cost."""
     import torch
     fn()
     torch.cuda.synchronize()
     rounds, host_rounds = [], []
-    for _ in range(3):
+    for r in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(200_000_000)  # cycles, ~0.1 s at H100 clocks
         start.record()
         t_host = time.perf_counter()
-        for i in range(reps):
+        for i in range(r * reps, (r + 1) * reps):
             fn(i)
         end.record()
         t_host = time.perf_counter() - t_host
@@ -135,14 +160,15 @@ def check(words, what: str) -> "tuple[int, list[int]]":
 def check_chunk_edges(dev, gen) -> int:
     """Word counts one below and one above the edges of the kernel's
     plan (one step of a block, and the whole persistent grid's step:
-    grid x threads x loads x 4 words), and a few words, at every 4-byte
-    offset from a 16-byte boundary."""
+    grid x threads x loads x 4 words), a few words, and the 1 KiB and
+    4 KiB blocks of dir mode's small files, at every 4-byte offset from a
+    16-byte boundary."""
     from elbencho_tpu_torch.ops.verify import TILE_VECS, launch_shape
     sms, per_sm = launch_shape(dev.index)
     edge = sms * per_sm * TILE_VECS * 4
     max_err = 0
-    for n in (0, 2, 3, 5, 4 * TILE_VECS - 1, 4 * TILE_VECS + 1, edge - 1,
-              edge + 1):
+    for n in (0, 2, 3, 5, 256, 1024, 4 * TILE_VECS - 1, 4 * TILE_VECS + 1,
+              edge - 1, edge + 1):
         base = rand_words(n + 3, gen, dev)
         if base.data_ptr() % 16:
             fail("a fresh device allocation is not 16-byte aligned")
@@ -199,33 +225,50 @@ def check_two_streams(dev, gen) -> None:
 
 def show_one_launch_per_call(words) -> None:
     """Trace 10 calls with torch.profiler: each must enqueue the kernel
-    and nothing else on the device (no zero fill)."""
+    and nothing else on the device (no zero fill), and the wrapper must
+    count 10 launches. The trace window opens PROFILE_MARGIN_S before the
+    first call and closes PROFILE_MARGIN_S after the device has finished
+    the last: the profiler keeps only the kernel records that the device
+    has delivered by the close and whose times, converted to the host
+    clock, lie inside the window, so a kernel at either edge could
+    otherwise go unrecorded though it ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
     fingerprint_u32(words)
     torch.cuda.synchronize()
+    launches = fingerprint_u32.launches.count
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(10):
             fingerprint_u32(words)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
+        time.sleep(PROFILE_MARGIN_S)
+    launches = fingerprint_u32.launches.count - launches
+    events = prof.events()
+    names = [e.name for e in events
              if e.device_type == torch.autograd.DeviceType.CUDA]
+    runtime = sum("LaunchKernel" in e.name for e in events)
     ours = sum("fingerprint_u32_kernel" in n for n in names)
     others = sorted({n for n in names if "fingerprint_u32_kernel" not in n})
     if not names:
         fail("torch.profiler recorded no device activity for 10 calls, so "
              "one launch per call is not shown")
     print(f"  device activity of 10 calls (torch.profiler): {ours} "
-          f"fingerprint kernels, other device work: {others or 'none'}")
-    if ours != 10 or others:
-        fail(f"10 calls enqueued {ours} fingerprint kernels and {others}")
+          f"fingerprint kernels, other device work: {others or 'none'}; "
+          f"{runtime} kernel launches on the host, {launches} counted by "
+          f"the wrapper")
+    if ours != 10 or others or launches != 10:
+        fail(f"10 calls enqueued {ours} fingerprint kernels and {others} "
+             f"(host launch records {runtime}, wrapper count {launches})")
 
 
 def time_sizes(dev, gen) -> "dict[int, dict]":
     """Kernel, torch.sum (int64) and plain device ms per call at each
-    size in TIMING_MIB, rotating over distinct blocks of one 512 MiB
-    pool so that each launch reads device memory, not L2."""
+    size in TIMING_BYTES (keyed by bytes), rotating over distinct blocks
+    of one 512 MiB pool so that each launch reads device memory, not L2
+    (at 4 KiB the 600 blocks of a measurement, 2.4 MiB, may be in L2
+    when torch.sum and the plain version read them after the kernel)."""
     import torch
     from elbencho_tpu_torch.ops.verify import (fingerprint_u32,
                                                fingerprint_u32_plain)
@@ -234,9 +277,9 @@ def time_sizes(dev, gen) -> "dict[int, dict]":
     print("fingerprint_u32 by block size (device ms per call, bound = "
           "bytes / 3.35 TB/s; torch.sum int64 is the sum half only: no "
           "PyTorch call computes the xor reduction):")
-    for mib in TIMING_MIB:
-        n = (mib << 20) // 4
-        k = TIMING_POOL // (mib << 20)
+    for size in TIMING_BYTES:
+        n = size // 4
+        k = min(TIMING_POOL // size, TIMING_VIEWS)
         blocks = [pool[i * n:(i + 1) * n] for i in range(k)]
         ms, host_ms = cuda_ms(lambda i=0: fingerprint_u32(blocks[i % k]),
                               200)
@@ -244,12 +287,14 @@ def time_sizes(dev, gen) -> "dict[int, dict]":
             lambda i=0: torch.sum(blocks[i % k], dtype=torch.int64), 100)
         plain_ms, _ = cuda_ms(
             lambda i=0: fingerprint_u32_plain(blocks[i % k]), 10)
-        bound_ms = (mib << 20) / HBM_BYTES_PER_SEC * 1e3
-        rows[mib] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms}
-        print(f"  {mib:>4} MiB ({k:>3} distinct blocks): kernel {ms:.4f} "
+        bound_ms = size / HBM_BYTES_PER_SEC * 1e3
+        rows[size] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms}
+        label = f"{size >> 10} KiB" if size < 1 << 20 else \
+            f"{size >> 20} MiB"
+        print(f"  {label:>7} ({k:>4} distinct blocks): kernel {ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of the "
-              f"bound, {(mib << 20) / ms / 1e6:.1f} GB/s; torch.sum int64 "
+              f"bound, {size / ms / 1e6:.1f} GB/s; torch.sum int64 "
               f"{library_ms:.4f} ms; plain {plain_ms:.4f} ms; the "
               f"wrapper's host cost {host_ms * 1e3:.1f} us per call")
     del pool, blocks
@@ -313,7 +358,7 @@ def kernel_phase(dev) -> dict:
         host_secs.append(time.perf_counter() - t)
     print(f"expected_fingerprint_host at 16 MiB (host): "
           f"{statistics.median(host_secs) * 1e3:.2f} ms median of 5")
-    main = rows[MAIN_BLOCK >> 20]
+    main = rows[MAIN_BLOCK]
     return {"name": "fingerprint_u32", "route": "cuda",
             "source": "elbencho_tpu_torch/csrc/fingerprint.cu",
             "replaces": "elbencho_tpu/ops/verify.py:39",
@@ -415,6 +460,194 @@ def main_path(work: str) -> int:
     return fingerprint_u32.launches.count
 
 
+def device_ops(rec: dict) -> int:
+    """Host->device copies of a READ record, device->host of a WRITE."""
+    keys = ("TpuH2dDirectOps", "TpuH2dStagedOps") if rec["Phase"] == "READ" \
+        else ("TpuD2hDirectOps", "TpuD2hStagedOps")
+    return sum(rec[k] for k in keys)
+
+
+def run_pass(name: str, args: "list[str]", json_path: str,
+             want_phases: "list[str]") -> "tuple[list[dict], int]":
+    """One CLI run with the kernel's launch count zeroed just before it and
+    read just after it; fails unless it exits 0 with `want_phases` on a
+    CUDA device. Returns (records, fingerprint launches)."""
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    fingerprint_u32.launches.reset()
+    t0 = time.monotonic()
+    rc, recs = run_cli(args, json_path)
+    secs = time.monotonic() - t0
+    launches = fingerprint_u32.launches.count
+    if rc != 0:
+        fail(f"pass '{name}' exited {rc}")
+    if [r["Phase"] for r in recs] != want_phases:
+        fail(f"pass '{name}' recorded phases {[r['Phase'] for r in recs]}, "
+             f"want {want_phases}")
+    print(f"pass '{name}': {secs:.1f} s, fingerprint launches {launches}")
+    for rec in recs:
+        ops = max(device_ops(rec), 1)
+        if "cuda" not in rec["Device"]:
+            fail(f"pass '{name}' {rec['Phase']} did not run on a CUDA device")
+        print(f"  {rec['Phase']:<8} {rec['EntriesLast']} entries, "
+              f"{rec['EntriesPerSecLast']} entries/s, {rec['BytesLast']} "
+              f"bytes, storage {rec['MiBPerSecLast']} MiB/s, device "
+              f"{rec['TpuHbmMiBPerSec']} MiB/s, {rec['TpuHbmBytes']} device "
+              f"bytes, {rec['IOLatHisto']['LatNumValues']} ops, device ops "
+              f"{device_ops(rec)} (H2D direct {rec['TpuH2dDirectOps']}), "
+              f"dispatch {rec['TpuDispatchUSec'] / ops:.1f} us/op, copy "
+              f"{rec['TpuTransferUSec'] / ops:.1f} us/op, "
+              f"entry latency avg {rec['EntLatUSecAvg']} us, max "
+              f"{rec['EntLatUSecMax']} us, elapsed {rec['ElapsedUSecLast']} "
+              f"us")
+    return recs, launches
+
+
+def expect(name: str, rec: dict, **want) -> None:
+    """Fail unless every key of `want` has its value in `rec` (the key
+    "ops" is the record's number of storage ops, "device_ops" its copies)."""
+    for key, value in want.items():
+        got = rec["IOLatHisto"]["LatNumValues"] if key == "ops" \
+            else device_ops(rec) if key == "device_ops" else rec[key]
+        if got != value:
+            fail(f"pass '{name}' {rec['Phase']}: {key} is {got}, want "
+                 f"{value}")
+
+
+def gpubatch_pass(work: str) -> None:
+    """Read the main path's 4 GiB file in 1 MiB blocks, without and with
+    --gpubatch 16, staged and --gpudirect: the batch cuts the copies from
+    4096 to 256 (a partial last batch would show as one more) for the
+    same device bytes. No claim rests on the rates printed."""
+    path = os.path.join(work, "smoke.bin")
+    blocks = MAIN_SIZE >> 20
+    for direct in ([], ["--gpudirect"]):
+        for batch, copies in ((1, blocks), (16, blocks // 16)):
+            mode = f"--gpubatch {batch}{' --gpudirect' if direct else ''}"
+            name = f"1 MiB read, {mode}"
+            (rec,), _ = run_pass(
+                name, ["-r", "-t", "2", "-b", "1M", "--iodepth", "4",
+                       "--gpuids", "0", "--gpubatch", str(batch), *direct,
+                       path],
+                os.path.join(work, "batch.json"), ["READ"])
+            expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
+                   ops=blocks, device_ops=copies)
+            if direct and rec["TpuH2dDirectOps"] != copies:
+                fail(f"pass '{name}': {rec['TpuH2dDirectOps']} direct "
+                     f"copies, want {copies}")
+            print(f"  {mode}: {rec['TpuHbmMiBPerSec']} MiB/s into the "
+                  f"device, {copies} copies")
+
+
+def striped_pass(work: str) -> int:
+    """Write and --gpuverify read striped over four 1 GiB files, then
+    delete them; returns the fingerprint launches."""
+    paths = [os.path.join(work, f"f{i}") for i in range(4)]
+    name = "striped write+read over 4 files"
+    recs, launches = run_pass(
+        name, ["-w", "-r", "-F", "-t", "2", "-b", "16M", "-s", "1g",
+               "--iodepth", "4", "--verify", "7", "--gpuverify", "--gpuids",
+               "0", *paths],
+        os.path.join(work, "stripe.json"), ["WRITE", "READ", "RMFILES"])
+    for rec in recs[:2]:
+        expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
+               ops=MAIN_BLOCKS, device_ops=MAIN_BLOCKS)
+    expect(name, recs[2], EntriesLast=4)
+    if launches != MAIN_BLOCKS:
+        fail(f"pass '{name}': {launches} fingerprint launches, want "
+             f"{MAIN_BLOCKS}")
+    if any(os.path.exists(p) for p in paths):
+        fail(f"pass '{name}' left files behind")
+    return launches
+
+
+def dataset_pass(work: str) -> int:
+    """The sharded training-ingest dataset (dir mode, 512 files of 16 MiB)
+    written and read under --gpuverify, one file corrupted and the read
+    refused, then deleted; returns the clean read's fingerprint launches."""
+    bench = os.path.join(work, "dataset")
+    os.makedirs(bench)
+    flags = ["-t", "8", "-n", "1", "-N", "64", "-s", "16M", "-b", "16M",
+             "--iodepth", "4", "--verify", "7", "--gpuids", "0"]
+    size = DATASET_FILES * MAIN_BLOCK
+    name = "dataset write+read, dir mode"
+    recs, launches = run_pass(
+        name, ["-d", "-w", "-r", "--gpuverify", *flags, bench],
+        os.path.join(work, "dataset.json"), ["MKDIRS", "WRITE", "READ"])
+    expect(name, recs[0], EntriesLast=8)
+    for rec in recs[1:]:
+        expect(name, rec, EntriesLast=DATASET_FILES, BytesLast=size,
+               TpuHbmBytes=size, ops=DATASET_FILES,
+               device_ops=DATASET_FILES)
+    if launches != DATASET_FILES:
+        fail(f"pass '{name}': {launches} fingerprint launches, want "
+             f"{DATASET_FILES}")
+    print(f"  dataset READ: {recs[2]['MiBPerSecLast']} MiB/s storage, "
+          f"{recs[2]['TpuHbmMiBPerSec']} MiB/s into the device")
+
+    victim = os.path.join(bench, "r5", "d0", "r5-f37")
+    with open(victim, "r+b") as f:
+        f.seek(9 << 20)
+        byte = f.read(1)
+        f.seek(9 << 20)
+        f.write(bytes([byte[0] ^ 0x04]))
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    fingerprint_u32.launches.reset()
+    err = _TeeStderr()
+    with contextlib.redirect_stderr(err):
+        rc, _ = run_cli(["-r", "--gpuverify", *flags, bench],
+                        os.path.join(work, "dataset-corrupt.json"))
+    bad = fingerprint_u32.launches.count
+    want_err = f"{INTEGRITY_ERROR} for block at offset 0"
+    if rc == 0:
+        fail("the --gpuverify read of a dataset with a corrupted file "
+             "succeeded")
+    if want_err not in err.text.getvalue():
+        fail(f"the dataset read with a corrupted file failed (rc {rc}), but "
+             f"not with '{want_err}'")
+    if bad == 0:
+        fail("the corrupted dataset read failed without a fingerprint "
+             "launch")
+    print(f"corrupted dataset file: --gpuverify read failed as it must (rc "
+          f"{rc}, '{want_err}' after {bad} fingerprint launches)")
+
+    name = "dataset delete, dir mode"
+    recs, _ = run_pass(name, ["-F", "-D", *flags, bench],
+                       os.path.join(work, "dataset-rm.json"),
+                       ["RMFILES", "RMDIRS"])
+    expect(name, recs[0], EntriesLast=DATASET_FILES)
+    expect(name, recs[1], EntriesLast=8)
+    if os.listdir(bench):
+        fail(f"the dataset directory is not empty after RMDIRS: "
+             f"{os.listdir(bench)[:5]}")
+    return launches
+
+
+def losf_pass(work: str) -> int:
+    """Lots of small files through all six phases; returns the READ's
+    fingerprint launches."""
+    bench = os.path.join(work, "losf")
+    os.makedirs(bench)
+    name = "lots of small files, dir mode"
+    recs, launches = run_pass(
+        name, ["-d", "-w", "--stat", "-r", "-F", "-D", "-t", "8", "-n", "16",
+               "-N", "512", "-s", "4K", "-b", "4K", "--verify", "7",
+               "--gpuverify", "--gpuids", "0", bench],
+        os.path.join(work, "losf.json"),
+        ["MKDIRS", "WRITE", "STAT", "READ", "RMFILES", "RMDIRS"])
+    for rec in recs:
+        want = 8 * 16 if rec["Phase"] in ("MKDIRS", "RMDIRS") else LOSF_FILES
+        expect(name, rec, EntriesLast=want)
+    expect(name, recs[3], device_ops=LOSF_FILES, TpuHbmBytes=LOSF_FILES << 12)
+    if launches != LOSF_FILES:
+        fail(f"pass '{name}': {launches} fingerprint launches, want "
+             f"{LOSF_FILES}")
+    print("  entries/s: " + ", ".join(
+        f"{r['Phase']} {r['EntriesPerSecLast']}" for r in recs))
+    if os.listdir(bench):
+        fail("the LOSF directory is not empty after RMDIRS")
+    return launches
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -479,17 +712,27 @@ def main() -> int:
 
     work = os.path.join(REPO, "_smoke_data")
     os.makedirs(work, exist_ok=True)
+    need = DATASET_FILES * MAIN_BLOCK + (1 << 30)
     free = shutil.disk_usage(work).free
-    if free < MAIN_SIZE + (1 << 30):
-        fail(f"{work} has {free >> 20} MiB free; the main path needs a "
-             f"{MAIN_SIZE >> 20} MiB file plus 1 GiB of headroom")
+    if free < need:
+        fail(f"{work} has {free >> 20} MiB free; the dataset pass needs "
+             f"{need >> 20} MiB (its 8 GiB plus 1 GiB of headroom)")
     try:
-        kernel["launches"] = main_path(work)
+        launches = main_path(work)
+        gpubatch_pass(work)
         corruption_run(work)
+        os.unlink(os.path.join(work, "smoke.bin"))
+        launches += striped_pass(work)
+        launches += dataset_pass(work)
+        launches += losf_pass(work)
+        kernel["launches"] = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(f"total {time.monotonic() - t_start:.1f} s")
+    total = time.monotonic() - t_start
+    print(f"total {total:.1f} s")
+    if total > TIME_LIMIT_S:
+        fail(f"the run took {total:.1f} s, over its {TIME_LIMIT_S} s limit")
     for line in smi.stdout.strip().splitlines():
         print(line.strip())
     order = ("name", "route", "source", "replaces", "launches",

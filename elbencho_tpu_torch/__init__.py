@@ -13,8 +13,10 @@ counterpart by name.
 
 Package layout:
   toolkits/   units, logger, offset generators, the "fast" PRNG
-  config/     the flag subset of this slice (file mode, --gpu* flags)
-  workers/    LocalWorker block loop, WorkerManager, shared phase state
+  config/     the flag subset of the port (dir mode, file mode on files
+              or block devices, --gpu* flags)
+  workers/    LocalWorker dir-mode and block loops, WorkerManager, shared
+              phase state
   stats/      phase results, JSON records, latency histograms, CPU util
   utils/      the page-aligned staging pool (cudaHostRegister under
               --gpudirect)

@@ -1,8 +1,15 @@
 """CLI entry point of the port (reference: elbencho_tpu/cli.py,
 source/Main.cpp:14-69): parse args, validate, run the local coordinator.
 
+    # file mode: one file, or several files/block devices striped
     python -m elbencho_tpu_torch -w -r -t 2 -b 16M -s 4g --iodepth 4 \\
-        --verify 7 --gpuids 0 --gpuverify [--gpudirect] /path/file
+        --verify 7 --gpuids 0 --gpuverify [--gpudirect] /path/file [...]
+    # dir mode: -n dirs of -N files per thread under each directory
+    python -m elbencho_tpu_torch -d -w --stat -r -F -D -t 8 -n 1 -N 64 \\
+        -s 16M -b 16M --verify 7 --gpuids 0 --gpuverify /path/dir
+    # --gpubatch: one host->device copy per 16 blocks of a read
+    python -m elbencho_tpu_torch -r -t 2 -b 1M --gpuids 0 --gpubatch 16 \\
+        /path/file
 """
 
 from __future__ import annotations

@@ -16,6 +16,9 @@ staging (LocalWorker.cpp:1427-1537, :2437-2490):
   --cuhostbufreg                       ->  --gpudirect: cudaHostRegister'ed
                                            I/O slots copied to and from by
                                            DMA, no bounce buffer
+  (JAX package's --tpubatch)           ->  --gpubatch: blocks staged into a
+                                           page-locked aggregation buffer,
+                                           one copy per batch
 
 Every device call runs inside ``torch.cuda.stream(self.stream)``: the
 current stream is per thread, and workers are threads. There are no
@@ -35,6 +38,7 @@ import torch
 
 from ..ops.fill import random_block_u32, verify_pattern_block_u32
 from ..ops.verify import load_kernel, verify_block_on_device
+from ..toolkits.logger import LOG_NORMAL, log
 from ..utils.staging_pool import StagingPool
 
 #: H2D/D2H path-audit counter map: (context attribute, JSON key). The
@@ -213,6 +217,7 @@ class CudaWorkerContext:
     def __init__(self, chip_id: int, block_size: int, direct: bool = False,
                  verify_on_device: bool = False, pipeline_depth: int = 1,
                  hbm_limit_pct: int = 90, dispatch_budget_usec: int = 0,
+                 batch_blocks: int = 1,
                  staging_pool: "StagingPool | None" = None,
                  device: "str | None" = None):
         self.chip_id = chip_id
@@ -231,10 +236,29 @@ class CudaWorkerContext:
                 f"block size {block_size} exceeds the device memory staging "
                 f"budget of GPU {chip_id} ({budget_bytes} bytes at "
                 f"--gpuhbmpct {hbm_limit_pct} fits fewer than 3 blocks)")
+        # --gpubatch: coalesce N blocks into one copy, paying the
+        # per-transfer dispatch cost once per batch. Disabled under
+        # on-device verify, which needs per-block device blocks.
+        self.batch_blocks = max(batch_blocks, 1)
+        if verify_on_device and self.batch_blocks > 1:
+            log(LOG_NORMAL, "NOTE: --gpubatch is ignored with "
+                            "--gpuverify (per-block on-device checks)")
+            self.batch_blocks = 1
         self._pool_blocks = min(self._FILL_POOL_BLOCKS,
                                 max(budget_blocks - 2, 1))
-        # the H2D ring and the D2H speculation ring each get depth slots
-        max_depth = max((budget_blocks - self._pool_blocks - 1) // 2, 1)
+        # one aggregated span must itself fit the budget beside the sink
+        # block: clamp the batch BEFORE the depth, which it divides
+        spare_blocks = max(budget_blocks - self._pool_blocks - 1, 2)
+        if self.batch_blocks > spare_blocks // 2:
+            clamped = max(spare_blocks // 2, 1)
+            log(LOG_NORMAL,
+                f"NOTE: --gpubatch {self.batch_blocks} exceeds the HBM "
+                f"staging budget; clamped to {clamped}")
+            self.batch_blocks = clamped
+        # the H2D ring and the D2H speculation ring each get depth slots,
+        # and with batching each H2D slot holds batch_blocks blocks
+        max_depth = max((budget_blocks - self._pool_blocks - 1)
+                        // (2 * self.batch_blocks), 1)
         self.pipeline_depth = min(max(pipeline_depth, 1), max_depth)
         self.stream = torch.cuda.Stream(self.device) if self.on_cuda \
             else None
@@ -246,15 +270,26 @@ class CudaWorkerContext:
             # one-time page-lock of the I/O slots (--cuhostbufreg)
             staging_pool.register_slots()
         self._num_words = max(block_size // 4, 1)
+        # one H2D ring slot on the device: a block, or a --gpubatch span
+        # rounded up to whole words (e.g. -b 6 --gpubatch 3)
+        self._slot_bytes = self._num_words * 4
+        if self.batch_blocks > 1:
+            agg_bytes = self.batch_blocks * max(block_size, 1)
+            self._slot_bytes = max(agg_bytes + (-agg_bytes) % 4, 4)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(chip_id)
         self._pipeline = TransferPipeline(self.pipeline_depth,
                                           budget_usec=dispatch_budget_usec,
                                           stream=self.stream)
         # H2D ring slots: one device block per slot (+ a page-locked
-        # bounce buffer per slot on the staged path), allocated once
+        # bounce buffer per slot on the staged path), allocated once.
+        # With --gpubatch the page-locked host buffer of a slot is its
+        # aggregation buffer instead, the copy's source on both paths;
+        # one per slot, so a buffer is not refilled while its copy is in
+        # flight (the ring drains it before the rotation comes back).
         self._dev_slots: "list[torch.Tensor]" = []
         self._bounce: "list[torch.Tensor]" = []
+        self._h2d_agg_bytes = 0  # bytes staged in the active agg buffer
         self._h2d_submits = 0
         self._last_ingested = None
         # write-source pool: filled ONCE, like the reference's
@@ -263,13 +298,12 @@ class CudaWorkerContext:
         self._fill_pool: list = []
         self._fill_idx = 0
         # speculative verify-pattern ring: (offset, length, salt) ->
-        # (device block, host copy, event); host copies rotate over
-        # depth+1 page-locked buffers (at most depth speculated + the one
-        # being consumed are live)
+        # (device block, host copy, event); host copies go to depth+1
+        # page-locked buffers, each new copy to one that no live entry holds
+        # (at most depth speculated + the one being consumed are live)
         self._d2h_spec: dict = {}
         self._d2h_spec_miss_streak = 0
         self._spec_bufs: "list[torch.Tensor]" = []
-        self._spec_issues = 0
         self.h2d_direct_ops = 0
         self.h2d_staged_ops = 0
         self.d2h_direct_ops = 0
@@ -287,12 +321,14 @@ class CudaWorkerContext:
         return torch.cuda.stream(self.stream) if self.stream is not None \
             else contextlib.nullcontext()
 
-    def _host_buffers(self, count: int) -> "list[torch.Tensor]":
-        """`count` block-sized host buffers from the staging pool,
-        page-locked when the device is a GPU."""
+    def _host_buffers(self, count: int,
+                      nbytes: int = 0) -> "list[torch.Tensor]":
+        """`count` host buffers of `nbytes` (default: one block) from the
+        staging pool, page-locked when the device is a GPU."""
         return [torch.frombuffer(mv, dtype=torch.uint8)
-                for mv in self._pool.alloc_aux(count, self._num_words * 4,
-                                               register=self.on_cuda)]
+                for mv in self._pool.alloc_aux(
+                    count, nbytes or self._num_words * 4,
+                    register=self.on_cuda)]
 
     # -- read path: host buffer -> device ----------------------------------
 
@@ -310,19 +346,48 @@ class CudaWorkerContext:
         - direct (--gpudirect): the registered I/O slot itself is the
           copy's source, so it must not be rewritten before the copy
           completes — the ring depth is clamped to --iodepth for that.
+        - batched (--gpubatch): the block's words are staged into the
+          active aggregation buffer, and one copy of that buffer goes
+          out when the next block would not fit (or at flush); it counts
+          as one op of the path (staged or direct) that was asked for.
         """
         nbytes = (length // 4) * 4
         self._ensure_h2d_slots()
-        slot = self._h2d_submits % self.pipeline_depth
-        self._h2d_submits += 1
-        dst = self._dev_slots[slot][:nbytes]
+        if self.batch_blocks > 1:
+            agg = self._bounce[self._active_h2d_slot()].numpy()
+            start = self._h2d_agg_bytes
+            self._h2d_agg_bytes = start + nbytes
+            agg[start:self._h2d_agg_bytes] = np.frombuffer(
+                buf, dtype=np.uint8, count=nbytes)
+            if self._h2d_agg_bytes + self._num_words * 4 > len(agg):
+                self._flush_h2d_batch()
+            return
         src = torch.frombuffer(buf, dtype=torch.uint8, count=nbytes) \
             if nbytes else torch.empty(0, dtype=torch.uint8)
-        if self.direct:
+        dst = self._transfer_h2d(src, nbytes, pinned=self.direct)
+        if verify_salt and self.verify_on_device:
+            with self._on_stream():
+                verify_block_on_device(dst.view(torch.int32), file_offset,
+                                       length, verify_salt)
+
+    def _transfer_h2d(self, src: torch.Tensor, nbytes: int,
+                      pinned: bool) -> torch.Tensor:
+        """One copy of `nbytes` into the next device ring slot through the
+        in-flight pipeline; returns the slot's device view. A `pinned`
+        source (a registered I/O slot, or an aggregation buffer) is
+        copied from as it is; any other goes through the slot's
+        page-locked bounce buffer first."""
+        slot = self._active_h2d_slot()
+        self._h2d_submits += 1
+        dst = self._dev_slots[slot][:nbytes]
+        if pinned:
             def submit():
                 with self._on_stream():
                     dst.copy_(src, non_blocking=True)
-                self.h2d_direct_ops += 1
+                if self.direct:
+                    self.h2d_direct_ops += 1
+                else:
+                    self.h2d_staged_ops += 1
         else:
             bounce = self._bounce[slot][:nbytes]
 
@@ -335,18 +400,33 @@ class CudaWorkerContext:
                 self.h2d_staged_ops += 1
         self._pipeline.submit(submit)
         self._last_ingested = dst  # keep resident (benchmark sink)
-        if verify_salt and self.verify_on_device:
-            with self._on_stream():
-                verify_block_on_device(dst.view(torch.int32), file_offset,
-                                       length, verify_salt)
+        return dst
+
+    def _active_h2d_slot(self) -> int:
+        """The ring slot the next H2D copy goes to; under --gpubatch its
+        host buffer is also the one blocks are staged into."""
+        return self._h2d_submits % self.pipeline_depth
+
+    def _flush_h2d_batch(self) -> None:
+        """Copy the active aggregation buffer's staged bytes to the
+        device; the next batch stages into the next slot's buffer."""
+        if not self._h2d_agg_bytes:
+            return
+        nbytes = self._h2d_agg_bytes
+        self._h2d_agg_bytes = 0
+        self._transfer_h2d(self._bounce[self._active_h2d_slot()][:nbytes],
+                           nbytes, pinned=True)
 
     def _ensure_h2d_slots(self) -> None:
         if not self._dev_slots:
             self._dev_slots = [
-                torch.empty(self._num_words * 4, dtype=torch.uint8,
+                torch.empty(self._slot_bytes, dtype=torch.uint8,
                             device=self.device)
                 for _ in range(self.pipeline_depth)]
-            if not self.direct:
+            if self.batch_blocks > 1:
+                self._bounce = self._host_buffers(self.pipeline_depth,
+                                                  self._slot_bytes)
+            elif not self.direct:
                 self._bounce = self._host_buffers(self.pipeline_depth)
 
     @property
@@ -384,10 +464,15 @@ class CudaWorkerContext:
         self._pipeline.reset_counters()
         self._d2h_spec.clear()
         self._d2h_spec_miss_streak = 0
+        # a phase that ended without reaching flush() (worker error or
+        # interrupt) must not leak its staged batch into the next phase
+        self._h2d_agg_bytes = 0
 
     def flush(self) -> None:
-        """Drain all pipelined transfers (phase-end completion wait), then
-        enforce --gpubudget."""
+        """Drain all pipelined transfers (phase-end completion wait),
+        including a partly filled --gpubatch span, then enforce
+        --gpubudget."""
+        self._flush_h2d_batch()
         self._pipeline.flush()
 
     def warmup_transfer(self) -> None:
@@ -490,13 +575,18 @@ class CudaWorkerContext:
                 nxt = (file_offset + k * length, length, verify_salt)
                 if nxt not in self._d2h_spec:
                     self._d2h_spec[nxt] = self._issue_pattern(
-                        nxt[0], verify_salt, n_words)
+                        nxt[0], verify_salt, n_words, serving=entry)
         return entry
 
-    def _issue_pattern(self, file_offset: int, salt: int, n_words: int):
+    def _issue_pattern(self, file_offset: int, salt: int, n_words: int,
+                       serving=None):
         """(device block, host copy or None, event or None) of the verify
-        pattern at file_offset; on the staged path its copy into the next
-        rotating page-locked buffer is already started."""
+        pattern at file_offset; on the staged path its copy into a free
+        page-locked buffer is already started. A buffer is free when
+        neither a speculated entry nor `serving`, the entry the current
+        call is about to copy out, holds it: a stream that skips a
+        speculated offset keeps that entry live, so a plain rotation
+        over the buffers would overwrite it."""
         with self._on_stream():
             block = verify_pattern_block_u32(file_offset + salt, n_words,
                                              self.device)
@@ -504,9 +594,12 @@ class CudaWorkerContext:
                 return block, None, None
             if not self._spec_bufs:
                 self._spec_bufs = self._host_buffers(self.pipeline_depth + 1)
-            host = self._spec_bufs[self._spec_issues
-                                   % len(self._spec_bufs)][:n_words * 4]
-            self._spec_issues += 1
+            held = [e[1] for e in self._d2h_spec.values()]
+            if serving is not None:
+                held.append(serving[1])
+            held_ptrs = {h.data_ptr() for h in held}
+            host = next(b for b in self._spec_bufs
+                        if b.data_ptr() not in held_ptrs)[:n_words * 4]
             host.copy_(block.view(torch.uint8), non_blocking=True)
             event = None
             if self.stream is not None:
@@ -517,6 +610,7 @@ class CudaWorkerContext:
     def close(self) -> None:
         # teardown drain: no --gpubudget check here — a breach surfaces at
         # the phase-end flush(), never as a secondary error mid-cleanup
+        self._flush_h2d_batch()
         self._pipeline.flush(check_budget=False)
         if self.stream is not None:
             self.stream.synchronize()  # speculative copies still in flight

@@ -1,10 +1,11 @@
 """Page-aligned staging allocator of a worker's host I/O buffers.
 
 Reference: elbencho_tpu/utils/staging_pool.py, cut to what the port's
-file-mode slice needs: ONE anonymous ``mmap`` slab with one page-aligned
+Python block loop needs: ONE anonymous ``mmap`` slab with one page-aligned
 slot per ``--iodepth`` (O_DIRECT-safe), pre-filled with random data, plus
 ``alloc_aux`` for auxiliary page-aligned buffers with the same lifecycle
-(the device context's bounce buffers and host mirrors).
+(the device context's bounce, ``--gpubatch`` aggregation and host mirror
+buffers).
 
 Under ``--gpudirect`` the device context has the slot slab registered
 ONCE with the CUDA driver (``cudaHostRegister``, upstream elbencho's

@@ -95,11 +95,12 @@ class Worker:
     def interrupt_execution(self) -> None:
         self.is_interrupted = True
 
-    def check_interruption_request(self) -> None:
+    def check_interruption_request(self, force: bool = False) -> None:
         """Cheap periodic check in hot loops; also the stonewall snapshot
-        point (reference: checkInterruptionRequest)."""
+        point (reference: checkInterruptionRequest). ``force`` checks now
+        (once per dir-mode entry), not only every 128th call."""
         self._ops_since_check += 1
-        if self._ops_since_check < INTERRUPT_CHECK_INTERVAL:
+        if not force and self._ops_since_check < INTERRUPT_CHECK_INTERVAL:
             return
         self._ops_since_check = 0
         self.create_stonewall_stats_if_triggered()

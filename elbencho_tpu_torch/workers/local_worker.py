@@ -1,11 +1,13 @@
-"""LocalWorker: one I/O worker thread running the file-mode block loop.
+"""LocalWorker: one I/O worker thread running the POSIX phase loops.
 
 Reference: elbencho_tpu/workers/local_worker.py (source/workers/
-LocalWorker.{h,cpp}), cut to the port's slice: file mode on one file, the
-Python block loop (offset gen -> [pre-write fill] -> positional I/O ->
+LocalWorker.{h,cpp}), cut to the port's slices: dir mode (the dir/file
+namespace, mkdir/stat/rmdir of dirs, write/read/stat/unlink of files),
+file mode on one or several files or block devices (striped), the Python
+block loop (offset gen -> [pre-write fill] -> positional I/O ->
 [post-read verify / device ingest] -> latency + counters), integrity
-verify, and the delete phase. The native C++ engine, the fused
-``--tpustream`` ring, directory mode and the other storage back ends are
+verify, and the delete phases. The native C++ engine, the fused
+``--tpustream`` ring, custom trees and the other storage back ends are
 later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
@@ -21,7 +23,7 @@ import time
 
 import numpy as np
 
-from ..phases import BenchPhase
+from ..phases import BenchPathType, BenchPhase
 from ..toolkits import logger
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
@@ -29,6 +31,9 @@ from ..toolkits.offset_gen import (OffsetGenRandomAligned,
 from ..toolkits.random_algos import RandAlgoGoldenPrime
 from .base import Worker
 from .shared import WorkerException, WorkerInterruptedException
+
+MKFILE_MODE = 0o644  # reference: MKFILE_MODE, Common.h:96
+MKDIR_MODE = 0o755
 
 
 class LocalWorker(Worker):
@@ -84,6 +89,7 @@ class LocalWorker(Worker):
                 direct=cfg.use_gpu_direct, verify_on_device=cfg.do_gpu_verify,
                 pipeline_depth=depth, hbm_limit_pct=cfg.gpu_hbm_limit_pct,
                 dispatch_budget_usec=cfg.gpu_dispatch_budget_usec,
+                batch_blocks=max(cfg.gpu_batch_blocks, 1),
                 staging_pool=self._staging_pool, device=cfg.device)
             if cfg.run_create_files and not cfg.integrity_check_salt:
                 self._gpu.warmup_fill()  # device fill outside timed phase
@@ -121,7 +127,7 @@ class LocalWorker(Worker):
                 self.reset_stats()
                 try:
                     self._num_iops_submitted = 0
-                    self._file_mode_phase(phase)
+                    self._dispatch_phase(phase)
                     self.finish_phase_stats()
                     self.shared.inc_num_workers_done()
                 except WorkerInterruptedException:
@@ -134,6 +140,143 @@ class LocalWorker(Worker):
                     self.shared.inc_num_workers_done_with_error(err)
         finally:
             self.cleanup()
+
+    def _dispatch_phase(self, phase: BenchPhase) -> None:
+        """Phase x path type -> loop (reference: the POSIX branches of
+        the JAX package's _dispatch_phase_inner)."""
+        if phase in (BenchPhase.CREATEDIRS, BenchPhase.DELETEDIRS,
+                     BenchPhase.STATDIRS):
+            self._dir_mode_iterate_dirs(phase)
+        elif self.cfg.bench_path_type == BenchPathType.DIR:
+            self._dir_mode_iterate_files(phase)
+        else:
+            self._file_mode_phase(phase)
+
+    # ------------------------------------------------------------------
+    # dir mode (reference: dirModeIterateDirs :2811 / IterateFiles :3055)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def dir_rel_path_for(rank: int, dir_idx: int, dir_sharing: bool) -> str:
+        """Namespace: "r<rank>/d<idx>", or shared "d<idx>" with --dirsharing
+        (reference: LocalWorker.cpp:3097 + dirsharing)."""
+        if dir_sharing:
+            return f"d{dir_idx}"
+        return f"r{rank}/d{dir_idx}"
+
+    @staticmethod
+    def file_rel_path_for(rank: int, dir_idx: int, file_idx: int,
+                          dir_sharing: bool) -> str:
+        base = LocalWorker.dir_rel_path_for(rank, dir_idx, dir_sharing)
+        return f"{base}/r{rank}-f{file_idx}"
+
+    def _bench_path_for_dir(self, dir_idx: int) -> str:
+        """Round-robin dirs over bench paths (reference: :3110)."""
+        paths = self.cfg.paths
+        return paths[(self.rank + dir_idx) % len(paths)]
+
+    def _dir_mode_iterate_dirs(self, phase: BenchPhase) -> None:
+        cfg = self.cfg
+        if cfg.do_dir_sharing and self.rank % cfg.num_threads != 0 \
+                and phase != BenchPhase.STATDIRS:
+            # with dirsharing only one local worker creates/deletes the
+            # shared dirs (others would collide)
+            self.got_phase_work = False
+            return
+        for dir_idx in range(cfg.num_dirs):
+            self.check_interruption_request(force=True)
+            path = os.path.join(
+                self._bench_path_for_dir(dir_idx),
+                self.dir_rel_path_for(self.rank, dir_idx, cfg.do_dir_sharing))
+            t0 = time.perf_counter_ns()
+            if phase == BenchPhase.CREATEDIRS:
+                os.makedirs(path, MKDIR_MODE, exist_ok=True)
+            elif phase == BenchPhase.DELETEDIRS:
+                os.rmdir(path)
+                parent = os.path.dirname(path)
+                if os.path.basename(parent).startswith("r"):
+                    try:
+                        os.rmdir(parent)  # remove empty rank dir
+                    except OSError:
+                        pass
+            else:  # STATDIRS
+                os.stat(path)
+            self.entries_latency_histo.add_latency(
+                (time.perf_counter_ns() - t0) // 1000)
+            self.live_ops.num_entries_done += 1
+
+    def _dir_mode_iterate_files(self, phase: BenchPhase) -> None:
+        """open -> block loop -> close per file; entry latency histogram
+        per file (reference: dirModeIterateFiles :3055-3281,
+        unlinkat/fstatat for del/stat :3237-3249)."""
+        cfg = self.cfg
+        for dir_idx in range(cfg.num_dirs):
+            base = self._bench_path_for_dir(dir_idx)
+            for file_idx in range(cfg.num_files):
+                self.check_interruption_request(force=True)
+                path = os.path.join(base, self.file_rel_path_for(
+                    self.rank, dir_idx, file_idx, cfg.do_dir_sharing))
+                t0 = time.perf_counter_ns()
+                if phase == BenchPhase.CREATEFILES:
+                    self._write_one_file(path)
+                elif phase == BenchPhase.READFILES:
+                    self._read_one_file(path)
+                elif phase == BenchPhase.STATFILES:
+                    os.stat(path)
+                elif phase == BenchPhase.DELETEFILES:
+                    os.unlink(path)
+                self.entries_latency_histo.add_latency(
+                    (time.perf_counter_ns() - t0) // 1000)
+                self.live_ops.num_entries_done += 1
+
+    def _write_one_file(self, path: str) -> None:
+        cfg = self.cfg
+        try:
+            fd = os.open(path, os.O_WRONLY | os.O_CREAT, MKFILE_MODE)
+        except FileNotFoundError as err:
+            if not cfg.run_create_dirs:
+                # parity hint (reference: dirModeOpenAndPrepFile :7395)
+                raise WorkerException(
+                    f"File create/open failed. Did you forget to enable "
+                    f"directory creation ('--mkdirs'/-d)? Path: {path}"
+                ) from err
+            raise
+        try:
+            if cfg.file_size:
+                self._rw_block_sized(
+                    fd, self._make_offset_gen_for_file(is_write=True),
+                    is_write=True)
+        finally:
+            os.close(fd)
+
+    def _read_one_file(self, path: str) -> None:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            if self.cfg.file_size:
+                self._rw_block_sized(
+                    fd, self._make_offset_gen_for_file(is_write=False),
+                    is_write=False)
+        finally:
+            os.close(fd)
+
+    def _make_offset_gen_for_file(self, is_write: bool):
+        """Offsets within one dir-mode file. Random mode reads (or, for
+        writes, covers) the random amount divided by the dataset threads,
+        at least one block, per file: the reference's per-file split
+        (reference: initPhaseRWOffsetGen :1141-1186)."""
+        cfg = self.cfg
+        size, bs = cfg.file_size, cfg.block_size
+        if cfg.use_random_offsets:
+            amount = max(cfg.random_amount // max(1, cfg.num_dataset_threads),
+                         bs)
+            if is_write:
+                # full-coverage LCG: every block exactly once (default for
+                # aligned random writes, reference LocalWorker.cpp:1177)
+                return OffsetGenRandomAlignedFullCoverage(
+                    self._rand_offset_algo, amount, bs, range_len=size)
+            return OffsetGenRandomAligned(self._rand_offset_algo, amount, bs,
+                                          range_len=size)
+        return OffsetGenSequential(size, bs)
 
     # ------------------------------------------------------------------
     # file mode (reference: fileModeIterateFilesSeq :3597,
@@ -150,12 +293,24 @@ class LocalWorker(Worker):
                     os.unlink(p)
                     self.live_ops.num_entries_done += 1
             return
+        if phase == BenchPhase.STATFILES:
+            for p in cfg.paths:
+                os.stat(p)
+                self.live_ops.num_entries_done += 1
+            return
         is_write = (phase == BenchPhase.CREATEFILES)
-        gen = self._make_file_mode_offset_gen(is_write, cfg.file_size)
+        fds = cfg.bench_path_fds
+        gen = self._make_file_mode_offset_gen(is_write,
+                                              cfg.file_size * len(fds))
         if gen is None:
             self.got_phase_work = False
             return
-        self._rw_block_sized(cfg.bench_path_fds[0], gen, is_write)
+        # several files/bdevs: the worker's offsets run over one range of
+        # len(paths) x file size, striped into the files (reference:
+        # calcFileIdxAndOffsetStriped, LocalWorker.cpp:2084)
+        self._rw_block_sized(
+            fds[0], gen, is_write,
+            stripe=(fds, cfg.file_size) if len(fds) > 1 else None)
 
     def _make_file_mode_offset_gen(self, is_write: bool, total_range: int):
         """Per-worker share of the file: seq mode slices a contiguous range
@@ -187,14 +342,21 @@ class LocalWorker(Worker):
     # hot loop (reference: rwBlockSized, LocalWorker.cpp:1702-1814)
     # ------------------------------------------------------------------
 
-    def _rw_block_sized(self, fd: int, gen, is_write: bool) -> None:
+    def _rw_block_sized(self, fd: int, gen, is_write: bool,
+                        stripe: "tuple | None" = None) -> None:
         """offset-gen loop -> [fill buf] -> positional I/O -> [verify /
-        device H2D] -> latency + counters."""
+        device H2D] -> latency + counters. ``stripe=(fds, file_size)``
+        maps the generator's offsets over several files: offset o is
+        o % file_size in file o // file_size. The device batch is flushed
+        at the end of every call, so in dir mode a --gpubatch span never
+        holds blocks of two files."""
         num_bufs = len(self._io_bufs)
         for off, length in gen:
             # rotate buffers so pipelined transfers never race a reuse
             buf = self._io_bufs[self._num_iops_submitted % num_bufs]
             self.check_interruption_request()
+            if stripe is not None:
+                fd, off = stripe[0][off // stripe[1]], off % stripe[1]
             if is_write:
                 self._pre_write_fill(buf, off, length)
             t0 = time.perf_counter_ns()

@@ -144,5 +144,8 @@ def test_config_errors(tmp_path, capsys, argv, message):
 
 
 def test_directory_path_is_refused(tmp_path, capsys):
+    """A directory is a dir-mode bench path: a write into it without
+    --mkdirs is refused with the JAX package's hint."""
     assert port_main(["-w", "-s", "1M", str(tmp_path)], device="cpu") == 1
-    assert "regular file only" in capsys.readouterr().err
+    assert "Did you forget to enable directory creation ('--mkdirs'/-d)?" \
+        in capsys.readouterr().err

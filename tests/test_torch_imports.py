@@ -45,7 +45,8 @@ def test_no_jax_or_jax_package_import(path):
 
 def test_importing_the_cli_loads_no_jax():
     code = ("import sys, elbencho_tpu_torch.cli, "
-            "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify;"
+            "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify, "
+            "elbencho_tpu_torch.coordinator;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
