@@ -7,7 +7,8 @@ It needs one CUDA device and the repository beside it, and exits nonzero
 without printing a result otherwise. In order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions and the kernel build time;
+   versions, and the build times of the kernel and of the native I/O
+   engine (csrc/ioengine.cpp, g++);
 2. builds the fingerprint kernel (csrc/fingerprint.cu) with nvcc and holds
    it against its plain PyTorch version on the card, exactly (tolerance 0:
    addition mod 2^32 and xor do not depend on order), at several word
@@ -21,16 +22,27 @@ without printing a result otherwise. In order it:
    reduction) at 4 KiB (the small-files pass's block) and at 1 to 256 MiB,
    the main path's 16 MiB block among them;
 3. drives the port's main path through its CLI on a 4 GiB file
-   (-s 10g of the README's headline command, cut to fit the smoke's time):
-   write+read with --verify and --gpuverify, a --gpudirect read, and a plain
-   write+read through the device fill pool; asserts bytes, ops, that the
-   kernel ran once per block read under --gpuverify, and that --gpudirect
-   copied from page-locked slots;
+   (-s 10g of the README's headline command, cut to fit the smoke's time),
+   through the fused --gpustream ring (--gpustream on): write+read with
+   --verify and --gpuverify, a --gpudirect read, and a plain write+read
+   through the device fill pool; then the two --gpuverify passes again
+   through the Python loop (--gpustream off); asserts bytes, ops, which
+   loop served every op, that the kernel ran once per block read under
+   --gpuverify, and that --gpudirect copied from page-locked slots;
+   then bench.py's headline shape, a plain -r -t 2 -b 16M --iodepth 4
+   read of the file, staged and --gpudirect, through the fused ring and
+   through the Python loop (--gpustream off), three runs each in
+   alternating order, printing each one's median rates, dispatch cost,
+   in-flight high-water mark and full stalls, and the ring's backend,
+   which must be the one the engine probes (io_uring where the kernel
+   has it, with its fixed-buffer registration printed);
 4. reads the same file with -b 1M, without and with --gpubatch 16, staged
-   and --gpudirect, and checks that the batch cuts the host->device copies
+   and --gpudirect, through the ring and (--gpubatch 16) the Python
+   loop, and checks that the batch cuts the host->device copies
    sixteenfold for the same bytes;
 5. flips one byte of the file and checks that the --gpuverify read fails,
-   with the kernel's integrity error and after launching the kernel;
+   staged and through the fused ring with --gpudirect, with the kernel's
+   integrity error and after launching the kernel;
 6. drives the paths of the later slices through the CLI, each a main path
    of its own with the kernel's launch count zeroed before it and read
    after it: a write+read striped over four 1 GiB files; the sharded
@@ -40,7 +52,8 @@ without printing a result otherwise. In order it:
    files run (8 threads x 16 dirs x 512 files of 4 KiB through all six
    phases, toward the reference's LOSF sweep in BASELINE.md, cut to fit
    the smoke's time); each checks its entries, bytes, device copies and
-   kernel launches;
+   kernel launches, and prints which block loop it took (the dataset's
+   and the small files' files are too short for the fused ring);
 7. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
@@ -82,12 +95,12 @@ INTEGRITY_ERROR = "on-device integrity check failed"
 PROFILE_MARGIN_S = 0.05        # idle host time at each end of a trace window
 
 
-class _TeeStderr(io.TextIOBase):
-    """stderr that is also kept in ``text``."""
+class _Tee(io.TextIOBase):
+    """A stream (stderr by default) whose text is also kept in ``text``."""
 
-    def __init__(self):
+    def __init__(self, stream=None):
         self.text = io.StringIO()
-        self._stream = sys.stderr
+        self._stream = stream or sys.stderr
 
     def write(self, s: str) -> int:
         self.text.write(s)
@@ -404,15 +417,24 @@ def main_path(work: str) -> int:
     common = ["-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
               "--iodepth", "4", "--gpuids", "0", path]
     verify = ["--verify", "7", "--gpuverify"]
+    # the fused ring first, then the verify passes again through the
+    # Python loop, which serves every phase the ring cannot take
     passes = (
         ("write+read, --gpuverify", ["-w", "-r", *verify], MAIN_BLOCKS),
         ("read, --gpudirect --gpuverify", ["-r", "--gpudirect", *verify],
          MAIN_BLOCKS),
         ("write+read, device fill pool", ["-w", "-r"], 0),
+        ("write+read, --gpuverify, Python loop",
+         ["-w", "-r", *verify, "--gpustream", "off"], MAIN_BLOCKS),
+        ("read, --gpudirect --gpuverify, Python loop",
+         ["-r", "--gpudirect", *verify, "--gpustream", "off"], MAIN_BLOCKS),
     )
     launches_before = 0
     fingerprint_u32.launches.reset()
     for i, (name, flags, want_launches) in enumerate(passes):
+        fused = "off" not in flags
+        if fused:
+            flags = flags + ["--gpustream", "on"]
         t0 = time.monotonic()
         rc, recs = run_cli(flags + common,
                            os.path.join(work, f"pass{i}.json"))
@@ -442,7 +464,12 @@ def main_path(work: str) -> int:
                   f"D2H direct {rec['TpuD2hDirectOps']}, prefetch hits "
                   f"{rec['TpuD2hPrefetchHits']}, inflight hwm "
                   f"{rec['TpuPipeInflightHwm']}, full stalls "
-                  f"{rec['TpuPipeFullStalls']}, on {rec['Device']}")
+                  f"{rec['TpuPipeFullStalls']}, {loop_taken(rec)}, on "
+                  f"{rec['Device']}")
+            if rec["TpuStreamFusedOps"] != (MAIN_BLOCKS if fused else 0):
+                fail(f"pass '{name}' {rec['Phase']}: "
+                     f"{rec['TpuStreamFusedOps']} ops through the fused "
+                     f"ring, want {MAIN_BLOCKS if fused else 0}")
             if rec["BytesLast"] != MAIN_SIZE \
                     or rec["TpuHbmBytes"] != MAIN_SIZE \
                     or rec["IOLatHisto"]["LatNumValues"] != MAIN_BLOCKS \
@@ -458,6 +485,72 @@ def main_path(work: str) -> int:
             fail(f"pass '{name}': {launches} fingerprint launches, want "
                  f"{want_launches} (one per block read under --gpuverify)")
     return fingerprint_u32.launches.count
+
+
+def loop_taken(rec: dict) -> str:
+    """Which block loop served a device phase's storage ops."""
+    fused = rec["TpuStreamFusedOps"]
+    return f"fused ring ({fused} ops)" if fused else "Python loop"
+
+
+def headline_pass(work: str, backend: str) -> None:
+    """bench.py's headline shape, a plain -r -t 2 -b 16M --iodepth 4 read
+    of the main path's 4 GiB file, staged and --gpudirect, through the
+    fused ring and through the Python loop: three runs of each, in
+    alternating order; prints each one's medians and the ring's backend
+    as the ring's log line reports it, and fails unless that is
+    `backend`, the engine's probed stream backend. No claim rests on the
+    rates."""
+    path = os.path.join(work, "smoke.bin")
+    configs = (("staged, fused ring", ["--gpustream", "on"]),
+               ("staged, Python loop", ["--gpustream", "off"]),
+               ("--gpudirect, fused ring", ["--gpudirect", "--gpustream",
+                                            "on"]),
+               ("--gpudirect, Python loop", ["--gpudirect", "--gpustream",
+                                             "off"]))
+    recs = {name: [] for name, _ in configs}
+    engaged = set()
+    for rep in range(3):
+        for name, flags in configs if rep % 2 == 0 else configs[::-1]:
+            out = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(out):
+                (rec,), _ = run_pass(
+                    f"headline read, {name}",
+                    ["-r", "-t", "2", "-b", "16M", "--iodepth", "4",
+                     "--gpuids", "0", *flags, path],
+                    os.path.join(work, "headline.json"), ["READ"])
+            fused = "fused" in name
+            expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
+                   ops=MAIN_BLOCKS, device_ops=MAIN_BLOCKS,
+                   TpuStreamFusedOps=MAIN_BLOCKS if fused else 0,
+                   TpuH2dDirectOps=MAIN_BLOCKS if "direct" in name else 0)
+            recs[name].append(rec)
+            engaged.update(line.split("fused GPU stream engaged ")[1]
+                           for line in out.text.getvalue().splitlines()
+                           if "fused GPU stream engaged " in line)
+    print("headline read (-r -t 2 -b 16M --iodepth 4, 4 GiB), medians of "
+          "3 runs in alternating order:")
+    for name, _ in configs:
+        runs = recs[name]
+
+        def med(fn, runs=runs):
+            return statistics.median(fn(r) for r in runs)
+        print(f"  {name:<24} storage {med(lambda r: r['MiBPerSecLast'])} "
+              f"MiB/s (runs: {[r['MiBPerSecLast'] for r in runs]}), device "
+              f"{med(lambda r: r['TpuHbmMiBPerSec'])} MiB/s, dispatch "
+              f"{med(lambda r: r['TpuDispatchUSec'] / MAIN_BLOCKS):.1f} "
+              f"us/op, copy "
+              f"{med(lambda r: r['TpuTransferUSec'] / MAIN_BLOCKS):.1f} "
+              f"us/op, inflight hwm {med(lambda r: r['TpuPipeInflightHwm'])}"
+              f", full stalls {med(lambda r: r['TpuPipeFullStalls'])}")
+    if not engaged:
+        fail("the fused headline reads logged no engaged stream ring")
+    if any(f"backend={backend}," not in e for e in engaged):
+        fail(f"the fused headline reads ran {sorted(engaged)}, not the "
+             f"engine's probed backend {backend}")
+    # ABI 11 has no accessor for the ring's fixed-file registration
+    print(f"  stream ring: {sorted(engaged)}; fixed_files: not reported "
+          f"by the engine (ABI 11 has no accessor)")
 
 
 def device_ops(rec: dict) -> int:
@@ -496,6 +589,7 @@ def run_pass(name: str, args: "list[str]", json_path: str,
               f"{device_ops(rec)} (H2D direct {rec['TpuH2dDirectOps']}), "
               f"dispatch {rec['TpuDispatchUSec'] / ops:.1f} us/op, copy "
               f"{rec['TpuTransferUSec'] / ops:.1f} us/op, "
+              f"{loop_taken(rec)}, "
               f"entry latency avg {rec['EntLatUSecAvg']} us, max "
               f"{rec['EntLatUSecMax']} us, elapsed {rec['ElapsedUSecLast']} "
               f"us")
@@ -515,22 +609,27 @@ def expect(name: str, rec: dict, **want) -> None:
 
 def gpubatch_pass(work: str) -> None:
     """Read the main path's 4 GiB file in 1 MiB blocks, without and with
-    --gpubatch 16, staged and --gpudirect: the batch cuts the copies from
-    4096 to 256 (a partial last batch would show as one more) for the
-    same device bytes. No claim rests on the rates printed."""
+    --gpubatch 16, staged and --gpudirect, through the fused ring, and
+    --gpubatch 16 once more through the Python loop: the batch cuts the
+    copies from 4096 to 256 (a partial last batch would show as one more)
+    for the same device bytes. No claim rests on the rates printed."""
     path = os.path.join(work, "smoke.bin")
     blocks = MAIN_SIZE >> 20
     for direct in ([], ["--gpudirect"]):
-        for batch, copies in ((1, blocks), (16, blocks // 16)):
-            mode = f"--gpubatch {batch}{' --gpudirect' if direct else ''}"
+        for batch, copies, stream in ((1, blocks, "auto"),
+                                      (16, blocks // 16, "auto"),
+                                      (16, blocks // 16, "off")):
+            mode = f"--gpubatch {batch}{' --gpudirect' if direct else ''}" \
+                f"{' --gpustream off' if stream == 'off' else ''}"
             name = f"1 MiB read, {mode}"
             (rec,), _ = run_pass(
                 name, ["-r", "-t", "2", "-b", "1M", "--iodepth", "4",
                        "--gpuids", "0", "--gpubatch", str(batch), *direct,
-                       path],
+                       "--gpustream", stream, path],
                 os.path.join(work, "batch.json"), ["READ"])
             expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
-                   ops=blocks, device_ops=copies)
+                   ops=blocks, device_ops=copies,
+                   TpuStreamFusedOps=0 if stream == "off" else blocks)
             if direct and rec["TpuH2dDirectOps"] != copies:
                 fail(f"pass '{name}': {rec['TpuH2dDirectOps']} direct "
                      f"copies, want {copies}")
@@ -550,7 +649,8 @@ def striped_pass(work: str) -> int:
         os.path.join(work, "stripe.json"), ["WRITE", "READ", "RMFILES"])
     for rec in recs[:2]:
         expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
-               ops=MAIN_BLOCKS, device_ops=MAIN_BLOCKS)
+               ops=MAIN_BLOCKS, device_ops=MAIN_BLOCKS,
+               TpuStreamFusedOps=MAIN_BLOCKS)
     expect(name, recs[2], EntriesLast=4)
     if launches != MAIN_BLOCKS:
         fail(f"pass '{name}': {launches} fingerprint launches, want "
@@ -575,9 +675,10 @@ def dataset_pass(work: str) -> int:
         os.path.join(work, "dataset.json"), ["MKDIRS", "WRITE", "READ"])
     expect(name, recs[0], EntriesLast=8)
     for rec in recs[1:]:
+        # a file of one 16 MiB block is shorter than two ring-fills
         expect(name, rec, EntriesLast=DATASET_FILES, BytesLast=size,
                TpuHbmBytes=size, ops=DATASET_FILES,
-               device_ops=DATASET_FILES)
+               device_ops=DATASET_FILES, TpuStreamFusedOps=0)
     if launches != DATASET_FILES:
         fail(f"pass '{name}': {launches} fingerprint launches, want "
              f"{DATASET_FILES}")
@@ -592,7 +693,7 @@ def dataset_pass(work: str) -> int:
         f.write(bytes([byte[0] ^ 0x04]))
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
     fingerprint_u32.launches.reset()
-    err = _TeeStderr()
+    err = _Tee()
     with contextlib.redirect_stderr(err):
         rc, _ = run_cli(["-r", "--gpuverify", *flags, bench],
                         os.path.join(work, "dataset-corrupt.json"))
@@ -636,7 +737,7 @@ def losf_pass(work: str) -> int:
         ["MKDIRS", "WRITE", "STAT", "READ", "RMFILES", "RMDIRS"])
     for rec in recs:
         want = 8 * 16 if rec["Phase"] in ("MKDIRS", "RMDIRS") else LOSF_FILES
-        expect(name, rec, EntriesLast=want)
+        expect(name, rec, EntriesLast=want, TpuStreamFusedOps=0)
     expect(name, recs[3], device_ops=LOSF_FILES, TpuHbmBytes=LOSF_FILES << 12)
     if launches != LOSF_FILES:
         fail(f"pass '{name}': {launches} fingerprint launches, want "
@@ -662,27 +763,31 @@ def corruption_run(work: str) -> None:
         f.seek(MAIN_SIZE // 4 + 123457)
         f.write(bytes([byte[0] ^ 0x40]))
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
-    launches_before = fingerprint_u32.launches.count
-    # the read must fail for the integrity check's reason alone, not for a
-    # launch, registration or setup error: keep its stderr and look
-    err = _TeeStderr()
-    with contextlib.redirect_stderr(err):
-        rc, _ = run_cli(["-r", "-t", "2", "-b", "16M", "--iodepth", "4",
-                         "--verify", "7", "--gpuids", "0", "--gpuverify",
-                         path],
-                        os.path.join(work, "corrupt.json"))
-    launches = fingerprint_u32.launches.count - launches_before
-    if rc == 0:
-        fail("the --gpuverify read of a corrupted file succeeded")
-    if INTEGRITY_ERROR not in err.text.getvalue():
-        fail(f"the --gpuverify read of a corrupted file failed (rc {rc}), "
-             f"but not with '{INTEGRITY_ERROR}'")
-    if launches == 0:
-        fail("the corruption run failed without launching the fingerprint "
-             "kernel")
-    print(f"corruption run: --gpuverify read of a file with one flipped "
-          f"byte failed as it must (rc {rc}, '{INTEGRITY_ERROR}' after "
-          f"{launches} fingerprint launches)")
+    for mode, flags in (("staged", []),
+                        ("fused ring, --gpudirect",
+                         ["--gpudirect", "--gpustream", "on"])):
+        launches_before = fingerprint_u32.launches.count
+        # the read must fail for the integrity check's reason alone, not
+        # for a launch, registration or setup error: keep its stderr
+        err = _Tee()
+        with contextlib.redirect_stderr(err):
+            rc, _ = run_cli(["-r", "-t", "2", "-b", "16M", "--iodepth", "4",
+                             "--verify", "7", "--gpuids", "0", "--gpuverify",
+                             *flags, path],
+                            os.path.join(work, "corrupt.json"))
+        launches = fingerprint_u32.launches.count - launches_before
+        if rc == 0:
+            fail(f"the --gpuverify read ({mode}) of a corrupted file "
+                 f"succeeded")
+        if INTEGRITY_ERROR not in err.text.getvalue():
+            fail(f"the --gpuverify read ({mode}) of a corrupted file failed "
+                 f"(rc {rc}), but not with '{INTEGRITY_ERROR}'")
+        if launches == 0:
+            fail(f"the corruption run ({mode}) failed without launching the "
+                 f"fingerprint kernel")
+        print(f"corruption run ({mode}): --gpuverify read of a file with one "
+              f"flipped byte failed as it must (rc {rc}, '{INTEGRITY_ERROR}' "
+              f"after {launches} fingerprint launches)")
 
 
 def main() -> int:
@@ -709,6 +814,16 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     kernel = kernel_phase(dev)
     check_registered_slot(dev)
+    from elbencho_tpu_torch.ops.cuda_build import build_reports
+    from elbencho_tpu_torch.utils.native import get_native_engine
+    engine = get_native_engine()
+    if engine is None:
+        fail("the native I/O engine needs g++, and there is none")
+    secs, report = build_reports["ioengine"]
+    built = "found built in _build/" if report == "cached" \
+        else f"built with g++ in {secs:.1f} s"
+    print(f"native I/O engine: {engine.version()}, {built}; stream "
+          f"backend {engine.stream_backend_name()}")
 
     work = os.path.join(REPO, "_smoke_data")
     os.makedirs(work, exist_ok=True)
@@ -719,6 +834,7 @@ def main() -> int:
              f"{need >> 20} MiB (its 8 GiB plus 1 GiB of headroom)")
     try:
         launches = main_path(work)
+        headline_pass(work, engine.stream_backend_name())
         gpubatch_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))

@@ -58,6 +58,9 @@ FLAG_DEFS = [
     ("iodepth", None, "io_depth", "int", 1,
      "I/O depth: staging slots per thread, and the depth of the "
      "in-flight device transfer ring"),
+    ("ioengine", None, "io_engine", "str", "auto",
+     "Native block-loop engine: auto|sync|aio|uring (auto = sync when "
+     "iodepth is 1, kernel AIO otherwise)"),
     ("rand", None, "use_random_offsets", "bool", False,
      "Random offsets instead of sequential"),
     ("dirsharing", None, "do_dir_sharing", "bool", False,
@@ -93,6 +96,13 @@ FLAG_DEFS = [
      "the host"),
     ("gpuhbmpct", None, "gpu_hbm_limit_pct", "int", 90,
      "Max percentage of device memory to use for staging buffers"),
+    ("gpustream", None, "gpu_stream", "str", "auto",
+     "Fused storage<->device streaming loop: the native engine keeps up "
+     "to --iodepth io_uring (or kernel-AIO) ops in flight over the "
+     "staging slots while Python overlaps the device copies. auto = on "
+     "where eligible with a logged fallback to the Python loop; on = "
+     "required (fail loudly when ineligible); off = always use the "
+     "Python loop"),
 ]
 
 _KIND_PARSERS = {"int": int, "str": str, "size": parse_size}
@@ -272,6 +282,16 @@ class BenchConfig(BenchConfigBase):
             raise ConfigError(
                 "--gpudepth/--gpubudget tune the GPU transfer pipeline — "
                 "they need --gpuids")
+        if self.io_engine not in ("auto", "sync", "aio", "uring"):
+            raise ConfigError("--ioengine must be auto|sync|aio|uring")
+        if self.io_engine == "sync" and self.io_depth > 1:
+            raise ConfigError("--ioengine sync requires --iodepth 1")
+        if self.gpu_stream not in ("auto", "on", "off"):
+            raise ConfigError("--gpustream must be auto|on|off")
+        if self.gpu_stream == "on" and not self.gpu_ids:
+            raise ConfigError(
+                "--gpustream on requires --gpuids (the fused loop streams "
+                "storage into GPU staging slots)")
         if self.gpu_batch_blocks > 1 and self.do_gpu_verify:
             # the aggregated copy skips the per-block on-device check
             raise ConfigError(

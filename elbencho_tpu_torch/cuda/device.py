@@ -55,6 +55,7 @@ PATH_AUDIT_COUNTERS = (
     ("d2h_prefetch_misses", "TpuD2hPrefetchMisses"),
     ("pipe_full_stalls", "TpuPipeFullStalls"),
     ("pipe_inflight_hwm", "TpuPipeInflightHwm"),
+    ("stream_fused_ops", "TpuStreamFusedOps"),
 )
 
 #: counters that merge across workers as MAX, not sum: a high-water mark
@@ -157,6 +158,14 @@ class TransferPipeline:
             self._drain_one()
         if check_budget:
             self.check_budget()
+
+    def drain_to(self, max_inflight: int) -> None:
+        """Drain the ring until at most max_inflight transfers are in
+        flight: a caller about to rewrite a host buffer submitted k
+        transfers ago drains to k-1 first, and the copy from it has
+        then completed."""
+        while len(self._ring) > max(max_inflight, 0):
+            self._drain_one()
 
     def check_budget(self) -> None:
         if not self.budget_usec or not self.ops:
@@ -314,6 +323,7 @@ class CudaWorkerContext:
         # has no fallback, so these stay 0
         self.h2d_direct_fallbacks = 0
         self.d2h_direct_fallbacks = 0
+        self.stream_fused_ops = 0  # storage ops of the fused stream ring
         if verify_on_device and self.on_cuda:
             load_kernel()  # build outside the timed phase
 
@@ -428,6 +438,25 @@ class CudaWorkerContext:
                                                   self._slot_bytes)
             elif not self.direct:
                 self._bounce = self._host_buffers(self.pipeline_depth)
+
+    def holdback_depth(self) -> int:
+        """How many freshly ingested I/O slots the fused stream loop must
+        keep out of the engine's ring after their host_to_device: an
+        unbatched --gpudirect copy reads the slot itself until it
+        completes, and the ring holds at most depth-1 copies after every
+        submit, so holding the last depth-1 ingested slots is exactly
+        the guarantee that no slot is read into while its copy runs. The
+        staged and --gpubatch paths copy the block out at submit and
+        need no holdback."""
+        if self.direct and self.batch_blocks == 1:
+            return self.pipeline_depth - 1
+        return 0
+
+    def drain_to(self, max_inflight: int) -> None:
+        """Drain the transfer ring to at most max_inflight copies: the
+        fused stream loop releases a held-back slot with it, without
+        waiting for more storage completions."""
+        self._pipeline.drain_to(max_inflight)
 
     @property
     def _inflight(self):

@@ -1,11 +1,20 @@
-"""Build and load the port's CUDA C++ kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native libraries (compiler -> shared library -> ctypes).
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
-compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``elbencho_tpu_torch/_build/lib<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source is never served from a stale
-library) and loaded with ``ctypes``. A failed build raises. Nothing is
-built at import: the CPU tests import every module on machines without
+Each source under ``csrc/`` has a plain C interface. At first use it is
+compiled into ``elbencho_tpu_torch/_build/lib<name>-<hash>.so`` (the hash
+covers the source, the compiler and its flags, so an edited source is
+never served from a stale library) and loaded with ``ctypes``:
+
+- ``load_library(name)``: the CUDA kernel ``csrc/<name>.cu``, built with
+  ``nvcc -gencode arch=compute_90a,code=sm_90a``;
+- ``load_host_library(name)``: the host C++ source ``csrc/<name>.cpp``
+  (the native I/O engine), built with ``g++ -O2 -fPIC -std=c++17 -shared``.
+
+A failed build raises with the compiler's output. The library is written
+under a name of its own process and moved into place with an atomic
+``os.replace``, so processes that build the same source at once (the
+tests run under pytest-xdist) each load a whole library. Nothing is built
+at import: the CPU tests import every module on machines without
 ``nvcc``.
 """
 
@@ -25,11 +34,12 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _lock = threading.Lock()
 _libs: "dict[str, ctypes.CDLL]" = {}
 
-#: per kernel source: (seconds the build took, compiler's -Xptxas -v report)
+#: per source name: (seconds the build took, the compiler's report)
 build_reports: "dict[str, tuple[float, str]]" = {}
 
 
@@ -44,20 +54,43 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_gxx() -> "str | None":
+    """The host C++ compiler, or None where the machine has none."""
+    return shutil.which("g++")
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first call."""
+    return _load(name, f"{name}.cu", find_nvcc, NVCC_FLAGS)
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cpp, built with g++ on first
+    call; raises where there is no g++."""
+    def gxx() -> str:
+        path = find_gxx()
+        if path is None:
+            raise RuntimeError(f"g++ not found; csrc/{name}.cpp is built "
+                               f"from source at first use")
+        return path
+    return _load(name, f"{name}.cpp", gxx, GXX_FLAGS)
+
+
+def _load(name: str, source: str, find_compiler, flags) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_build(name))
+            lib = ctypes.CDLL(_build(name, source, find_compiler(), flags))
             _libs[name] = lib
         return lib
 
 
-def _build(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def _build(name: str, source: str, compiler: str, flags) -> str:
+    src = os.path.join(CSRC_DIR, source)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(
+            f.read() + " ".join((os.path.basename(compiler),
+                                 *flags)).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         build_reports.setdefault(name, (0.0, "cached"))
@@ -65,11 +98,12 @@ def _build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.monotonic()
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    proc = subprocess.run([compiler, *flags, "-o", tmp, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src} (rc "
-                           f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed to build "
+                           f"{src} (rc {proc.returncode}):\n"
+                           f"{proc.stderr}{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     build_reports[name] = (time.monotonic() - t0,
                            (proc.stdout + proc.stderr).strip())

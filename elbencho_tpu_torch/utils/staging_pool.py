@@ -11,9 +11,11 @@ Under ``--gpudirect`` the device context has the slot slab registered
 ONCE with the CUDA driver (``cudaHostRegister``, upstream elbencho's
 ``--cuhostbufreg``): the pages are locked, so an asynchronous copy reads
 or writes them by DMA without a bounce buffer. That takes the place of the
-JAX package's io_uring fixed-buffer registration. A registration that
-fails raises: the port has no unregistered fallback. Hugepages, NUMA
-binding and SQPOLL are not ported.
+JAX package's pool-wide io_uring fixed-buffer registration: the fused
+``--gpustream`` ring registers the slots (``slot_addrs``) as fixed
+buffers of its own per-phase ring. A ``cudaHostRegister`` that fails
+raises: the port has no unregistered fallback. Hugepages, NUMA binding,
+the pool-registered persistent ring and SQPOLL are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ import mmap
 #: O_DIRECT-safe slot stride
 SLOT_ALIGN = 4096
 
+#: slabs kept mapped for the life of the process after a stream ring's
+#: drain failed with kernel-owned ops still in flight: unmapping them
+#: would hand a late completion unmapped address space
+_LEAKED_SLABS: "list[_Slab]" = []
+
 
 def _align_up(n: int, align: int) -> int:
     return (n + align - 1) // align * align
@@ -33,7 +40,7 @@ class _Slab:
     """One anonymous mapping carved into page-aligned views."""
 
     def __init__(self, count: int, nbytes: int):
-        stride = _align_up(max(nbytes, 1), SLOT_ALIGN)
+        self.stride = stride = _align_up(max(nbytes, 1), SLOT_ALIGN)
         self.mapping = mmap.mmap(-1, stride * count)
         self.base = ctypes.addressof(ctypes.c_char.from_buffer(self.mapping))
         self.registered = False
@@ -98,6 +105,12 @@ class StagingPool:
         return slab
 
     @property
+    def slot_addrs(self) -> "list[int]":
+        """The page-aligned base address of each I/O slot."""
+        slab = self._slots
+        return [slab.base + i * slab.stride for i in range(self.n_slots)]
+
+    @property
     def registered(self) -> bool:
         return self._slots is not None and self._slots.registered
 
@@ -114,6 +127,13 @@ class StagingPool:
         if register:
             slab.register()
         return slab.views
+
+    def leak(self) -> None:
+        """Keep every slab mapped (and registered) until process exit:
+        called when kernel DMA may still target the slots after a failed
+        stream-ring drain."""
+        _LEAKED_SLABS.extend(self._slabs)
+        self._slabs = []
 
     def close(self) -> None:
         """Unregister and unmap every slab."""

@@ -7,6 +7,7 @@ histograms, per-phase elapsed time, the interruption flag.
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 from ..stats.latency_histogram import LatencyHistogram
@@ -49,6 +50,8 @@ class Worker:
         self.stonewall_elapsed_usec = 0
         self.got_phase_work = True
         self.is_interrupted = False
+        # the interruption flag as the native engine polls it
+        self._native_interrupt = ctypes.c_int(0)
         self._ops_since_check = 0
         self.gpu_transfer_bytes = 0   # device ingest/egress accounting
         self.gpu_transfer_usec = 0    # copy wall time (submit -> done)
@@ -57,6 +60,7 @@ class Worker:
 
     def reset_stats(self) -> None:
         self.is_interrupted = False
+        self._native_interrupt.value = 0
         self.live_ops.reset()
         self.stonewall_ops.reset()
         self.stonewall_taken = False
@@ -94,6 +98,7 @@ class Worker:
 
     def interrupt_execution(self) -> None:
         self.is_interrupted = True
+        self._native_interrupt.value = 1
 
     def check_interruption_request(self, force: bool = False) -> None:
         """Cheap periodic check in hot loops; also the stonewall snapshot

@@ -3,12 +3,21 @@
 Reference: elbencho_tpu/workers/local_worker.py (source/workers/
 LocalWorker.{h,cpp}), cut to the port's slices: dir mode (the dir/file
 namespace, mkdir/stat/rmdir of dirs, write/read/stat/unlink of files),
-file mode on one or several files or block devices (striped), the Python
-block loop (offset gen -> [pre-write fill] -> positional I/O ->
-[post-read verify / device ingest] -> latency + counters), integrity
-verify, and the delete phases. The native C++ engine, the fused
-``--tpustream`` ring, custom trees and the other storage back ends are
-later slices.
+file mode on one or several files or block devices (striped), integrity
+verify, the delete phases, and three block loops (offset gen -> [pre-write
+fill] -> positional I/O -> [post-read verify / device ingest] -> latency +
+counters), tried in this order:
+
+1. the fused ``--gpustream`` ring (device phases): the native engine
+   keeps up to ``--iodepth`` io_uring (or kernel-AIO) ops in flight over
+   the staging slots, the GIL released while it reaps, and each
+   completed slot goes to the device transfer ring;
+2. the native block loop (phases without a device): the whole loop,
+   verify included, in the engine;
+3. the Python loop (``preadv``/``pwritev``).
+
+The engine's per-file loop, custom trees and the other storage back ends
+are later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
@@ -18,8 +27,10 @@ map to GPUs by ``rank % len(gpu_ids)`` and move blocks through a
 
 from __future__ import annotations
 
+import ctypes
 import os
 import time
+from collections import deque
 
 import numpy as np
 
@@ -29,6 +40,9 @@ from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
                                    OffsetGenSequential)
 from ..toolkits.random_algos import RandAlgoGoldenPrime
+from ..utils.native import (ENGINE_CODES, NativeStreamError,
+                            NativeVerifyError, _account_chunk,
+                            get_native_engine)
 from .base import Worker
 from .shared import WorkerException, WorkerInterruptedException
 
@@ -47,10 +61,14 @@ class LocalWorker(Worker):
         self._io_bufs: "list[memoryview]" = []
         self._rand_offset_algo = None
         self._gpu = None  # CudaWorkerContext when --gpuids given
+        self._native = None  # the native engine, where it can be built
         self._num_iops_submitted = 0
+        self._stream_mode_logged = False  # once-per-phase fused-loop note
+        self._stream_drain_failed = False  # aborted ring drain: leak bufs
 
     def reset_stats(self) -> None:
         super().reset_stats()
+        self._stream_mode_logged = False
         if self._gpu is not None:
             # path-audit counters are per-phase, like gpu_transfer_bytes
             self._gpu.reset_path_counters()
@@ -66,6 +84,7 @@ class LocalWorker(Worker):
             max(cfg.io_depth, 1), max(cfg.block_size, 1),
             fill_algo=RandAlgoGoldenPrime(seed=self.rank + 1))
         self._io_bufs = self._staging_pool.views
+        self._native = get_native_engine()  # build outside the timed phase
         if cfg.gpu_ids:
             from ..cuda.device import CudaWorkerContext
             chip = cfg.gpu_ids[self.rank % len(cfg.gpu_ids)]
@@ -103,6 +122,9 @@ class LocalWorker(Worker):
             self._gpu = None
         self._io_bufs = []
         if self._staging_pool is not None:
+            if self._stream_drain_failed:
+                # kernel DMA may still target the slots
+                self._staging_pool.leak()
             self._staging_pool.close()
             self._staging_pool = None
 
@@ -347,9 +369,38 @@ class LocalWorker(Worker):
         """offset-gen loop -> [fill buf] -> positional I/O -> [verify /
         device H2D] -> latency + counters. ``stripe=(fds, file_size)``
         maps the generator's offsets over several files: offset o is
-        o % file_size in file o // file_size. The device batch is flushed
-        at the end of every call, so in dir mode a --gpubatch span never
-        holds blocks of two files."""
+        o % file_size in file o // file_size. A device phase takes the
+        fused stream ring where it is eligible (``--gpustream auto``
+        logs why not, once per phase; ``on`` raises), a phase without a
+        device the native block loop, and the rest the Python loop
+        below. The device batch is flushed at the end of every call, so
+        in dir mode a --gpubatch span never holds blocks of two files."""
+        cfg = self.cfg
+        native = self._native
+        if self._gpu is not None and cfg.gpu_stream != "off":
+            blocker = self._gpu_stream_blocker(native, gen)
+            if blocker is None:
+                if self._run_fused_gpu_stream_loop(native, fd, gen,
+                                                   is_write, stripe):
+                    return
+                blocker = ("stream ring setup failed, or the pinned "
+                           "--ioengine is not the ring's actual backend")
+            if cfg.gpu_stream == "on":
+                raise WorkerException(
+                    f"--gpustream on: fused native-stream loop "
+                    f"unavailable ({blocker})")
+            self._log_stream_mode(
+                f"NOTE: fused GPU stream ineligible ({blocker}); "
+                f"using the Python loop")
+        elif self._gpu is None and native is not None:
+            self._run_native_block_loop(native, fd, gen, is_write, stripe)
+            return
+        if cfg.io_engine != "auto":
+            raise WorkerException(
+                f"--ioengine {cfg.io_engine} only supports the native "
+                f"block loop — " + ("incompatible with --gpuids"
+                                    if self._gpu is not None
+                                    else "native ioengine unavailable"))
         num_bufs = len(self._io_bufs)
         for off, length in gen:
             # rotate buffers so pipelined transfers never race a reuse
@@ -378,6 +429,236 @@ class LocalWorker(Worker):
         if self._gpu is not None:
             self._gpu.flush()  # drain pipelined transfers before phase end
             self._sync_gpu_usec()
+
+    def _log_stream_mode(self, msg: str) -> None:
+        """Once per phase, from the first local worker only."""
+        if self._stream_mode_logged:
+            return
+        self._stream_mode_logged = True
+        if self.rank % max(1, self.cfg.num_threads) == 0:
+            logger.log(logger.LOG_NORMAL, msg)
+
+    @staticmethod
+    def _stripe_offsets(offsets: np.ndarray, stripe_size: int):
+        """Vectorized stripe mapping (reference:
+        calcFileIdxAndOffsetStriped, LocalWorker.cpp:2084): global block
+        offsets -> (per-block file index, or None for one file; in-file
+        offsets). Shared by the native block loop and the fused ring."""
+        if stripe_size:
+            size = np.uint64(stripe_size)
+            return (offsets // size).astype(np.uint32), offsets % size
+        return None, offsets
+
+    #: bounds for one native engine call, so that interrupts stay
+    #: responsive and counters progress between calls
+    _NATIVE_CHUNK_MAX_BLOCKS = 8192
+    _NATIVE_CHUNK_MAX_BYTES = 256 << 20
+
+    def _native_chunk_blocks(self) -> int:
+        by_bytes = self._NATIVE_CHUNK_MAX_BYTES // max(self.cfg.block_size, 1)
+        return max(1, min(self._NATIVE_CHUNK_MAX_BLOCKS, by_bytes))
+
+    # ------------------------------------------------------------------
+    # fused storage->device streaming ring (--gpustream): the engine keeps
+    # up to iodepth storage ops in flight over the staging slots (GIL
+    # released across the blocking reap), Python reaps completed slots
+    # and hands them straight to the device transfer ring: disk DMA in
+    # the kernel overlaps the copy dispatch in Python, the cuFileRead
+    # overlap of the reference's GPUDirect path (LocalWorker.cpp:
+    # 2633-2749) rebuilt on io_uring/AIO + CUDA streams.
+    # ------------------------------------------------------------------
+
+    def _gpu_stream_blocker(self, native, gen) -> "str | None":
+        """Why the fused native-stream loop cannot serve this phase (None
+        = eligible)."""
+        cfg = self.cfg
+        if native is None:
+            return "native ioengine unavailable"
+        if cfg.bench_path_type == BenchPathType.DIR:
+            # dir mode opens one stream PER FILE: for files only a couple
+            # of ring-fills long, the ring setup + registration + teardown
+            # would outweigh the overlap it buys
+            if gen.num_bytes // max(cfg.block_size, 1) \
+                    < 2 * max(len(self._io_bufs), 1):
+                return "per-file stream too short to amortize ring setup"
+        if not native.stream_supported():
+            return "kernel lacks both io_uring and AIO"
+        if cfg.io_engine != "auto" and \
+                ENGINE_CODES[cfg.io_engine] != native.stream_backend():
+            return (f"--ioengine {cfg.io_engine} pinned but the stream "
+                    f"backend is {native.stream_backend_name()}")
+        return None
+
+    def _run_fused_gpu_stream_loop(self, native, fd: int, gen,
+                                   is_write: bool, stripe) -> bool:
+        """Drive the whole block loop through the engine's streaming ring.
+        Returns False when the ring cannot be opened, or runs on another
+        backend than a pinned --ioengine (the caller logs the fallback
+        and runs the Python loop). Accounting goes through
+        _account_chunk per drained chunk; the dispatch-vs-copy split
+        rides the TransferPipeline counters as in the Python loop."""
+        cfg = self.cfg
+        fds, stripe_size = (list(stripe[0]), stripe[1]) if stripe \
+            else ([fd], 0)
+        slot_addrs = self._staging_pool.slot_addrs
+        try:
+            stream = native.open_stream(fds, slot_addrs,
+                                        max(cfg.block_size, 1))
+        except NativeStreamError:
+            return False
+        if cfg.io_engine != "auto" and \
+                ENGINE_CODES[cfg.io_engine] != stream.backend:
+            # the open may have fallen back (e.g. the ring mmaps failed at
+            # this slot count): a pin holds against the ACTUAL backend
+            stream.close()
+            return False
+        self._log_stream_mode(
+            f"fused GPU stream engaged (backend={stream.backend_name}, "
+            f"slots={len(slot_addrs)}, "
+            f"fixed_buffers={int(stream.fixed_buffers)})")
+        # slot-reuse discipline: a slot is free, in the engine ring
+        # (slot_op), or held back after its H2D until the transfer ring
+        # has drained the copy that reads it (holdback_depth, fixed for
+        # the phase)
+        hold = self._gpu.holdback_depth()
+        free = deque(range(len(slot_addrs)))
+        held: "deque[int]" = deque()
+        slot_op: "dict[int, tuple[int, int, int]]" = {}
+        chunk = self._native_chunk_blocks()
+        try:
+            while True:
+                batch = gen.next_batch(chunk)
+                if batch is None:
+                    break
+                self._fused_stream_chunk(stream, batch, is_write,
+                                         stripe_size, free, held, slot_op,
+                                         hold)
+        finally:
+            # close() drains outstanding kernel DMA first; a failed drain
+            # means the kernel still owns ops that target the slots, so
+            # cleanup() keeps them mapped until process exit
+            if stream.close() != 0:
+                self._stream_drain_failed = True
+                logger.log_error(
+                    f"worker {self.rank}: stream ring drain failed; "
+                    f"keeping I/O buffers mapped until process exit")
+        self._gpu.flush()  # drain pipelined transfers before phase end
+        self._sync_gpu_usec()
+        return True
+
+    def _fused_stream_chunk(self, stream, batch, is_write: bool,
+                            stripe_size: int, free: deque, held: deque,
+                            slot_op: dict, hold: int) -> None:
+        """One bounded chunk of the fused loop: submit every op (reaping
+        for slots as needed), then drain to a chunk barrier so that the
+        array-based accounting is exact; an interrupt books the
+        completed-prefix estimate before it propagates."""
+        ctx = self._gpu
+        offsets, lengths = batch
+        n = len(offsets)
+        fd_idx, real_offs = self._stripe_offsets(offsets, stripe_size)
+        total = int(lengths.sum())
+        lat_arr = (ctypes.c_uint64 * n)()
+        reaped_bytes = 0
+
+        def reap_some(min_complete: int) -> None:
+            nonlocal reaped_bytes
+            events = stream.reap(min_complete, 1000, self._native_interrupt)
+            if not events:
+                # timeout or interrupt: surface the interrupt, else go on
+                self.check_interruption_request(force=True)
+                return
+            for slot, lat, res in events:
+                i, r_off, length = slot_op.pop(slot)
+                if res < 0:
+                    raise OSError(-res, os.strerror(-res))
+                if res != length:
+                    raise WorkerException(
+                        f"short {'write' if is_write else 'read'} at "
+                        f"offset {r_off}: {res} != {length}")
+                lat_arr[i] = lat
+                reaped_bytes += res
+                ctx.stream_fused_ops += 1
+                if is_write:
+                    free.append(slot)
+                    continue
+                # host->device copy + verify (host memcmp or on-device),
+                # the Python loop's post-read hook
+                self._post_read_actions(self._io_bufs[slot], r_off, length)
+                held.append(slot)
+                while len(held) > hold:
+                    free.append(held.popleft())
+
+        try:
+            for i in range(n):
+                self.check_interruption_request()
+                while not free:
+                    if slot_op:
+                        reap_some(0)  # harvest anything already done
+                        if free:
+                            break
+                    if held:
+                        # release the oldest ingested slot by draining its
+                        # copy: after drain_to(len(held)-1) the ring's FIFO
+                        # window covers only the newer held slots. Without
+                        # this the holdback would cap the engine ring at
+                        # n_slots-(depth-1) ops under --gpudirect.
+                        ctx.drain_to(len(held) - 1)
+                        free.append(held.popleft())
+                    else:
+                        reap_some(1)
+                slot = free.popleft()
+                length = int(lengths[i])
+                r_off = int(real_offs[i])
+                if is_write:
+                    # the block originates in device memory: D2H into the
+                    # slot, complete before the write is submitted
+                    self._pre_write_fill(self._io_bufs[slot], r_off, length)
+                slot_op[slot] = (i, r_off, length)
+                stream.submit(slot, int(fd_idx[i]) if fd_idx is not None
+                              else 0, r_off, length, is_write)
+            while slot_op:  # chunk barrier: exact accounting below
+                reap_some(1)
+        except WorkerInterruptedException:
+            _account_chunk(self, lat_arr, n, reaped_bytes, total)
+            raise
+        _account_chunk(self, lat_arr, n, reaped_bytes, total)
+
+    # ------------------------------------------------------------------
+    # native block loop (phases without a device): the whole loop, host
+    # --verify included, in the engine, chunk by chunk
+    # ------------------------------------------------------------------
+
+    def _run_native_block_loop(self, native, fd: int, gen, is_write: bool,
+                               stripe) -> None:
+        """Counters and latencies are booked per chunk; the engine polls
+        the interrupt flag within a chunk, and the worker checks it
+        between chunks."""
+        cfg = self.cfg
+        fds, stripe_size = (list(stripe[0]), stripe[1]) if stripe \
+            else ([fd], 0)
+        buf_addr = self._staging_pool.slot_addrs[0]
+        chunk = self._native_chunk_blocks()
+        while True:
+            batch = gen.next_batch(chunk)
+            if batch is None:
+                return
+            self.check_interruption_request(force=True)
+            fd_idx, offsets = self._stripe_offsets(batch[0], stripe_size)
+            try:
+                native.run_block_loop(
+                    fds, fd_idx, offsets, batch[1], is_write, buf_addr,
+                    cfg.io_depth, self, self._native_interrupt,
+                    engine=cfg.io_engine,
+                    verify_salt=cfg.integrity_check_salt)
+            except NativeVerifyError as err:
+                file_off = int(offsets[err.block_idx]) + err.word_idx * 8
+                hint = (" (read of an unwritten/sparse region?)"
+                        if err.got == 0 else "")
+                raise WorkerException(
+                    f"data integrity check failed at file offset "
+                    f"{file_off}: expected {err.want:#x}, "
+                    f"got {err.got:#x}{hint}") from None
 
     def _sync_gpu_usec(self) -> None:
         """Mirror the context's split timing counters into this worker's

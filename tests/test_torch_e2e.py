@@ -50,9 +50,11 @@ def records(json_path):
         return [json.loads(line) for line in f]
 
 
+@pytest.mark.parametrize("stream", ["auto", "off"])
 @pytest.mark.parametrize("direct", [False, True])
-def test_write_read_parity_with_the_jax_package(tmp_path, direct):
-    flags = ["-w", "-r", *WORKLOAD] + (["--gpudirect"] if direct else [])
+def test_write_read_parity_with_the_jax_package(tmp_path, direct, stream):
+    flags = ["-w", "-r", *WORKLOAD, "--gpustream", stream] \
+        + (["--gpudirect"] if direct else [])
     jax_flags = ["-w", "-r", *WORKLOAD] + (["--tpudirect"] if direct else [])
     assert run_jax(jax_flags + ["--tpuverify"], tmp_path / "jax.bin",
                    tmp_path / "jax.json") == 0
@@ -136,6 +138,14 @@ def test_host_only_run_without_gpuids(tmp_path):
     (["-r", "-s", "1M", "--gpubudget", "5"],
      "--gpudepth/--gpubudget tune the GPU transfer pipeline"),
     (["-r"], "file size must not be 0"),
+    (["-r", "-s", "1M", "--gpustream", "on"],
+     "--gpustream on requires --gpuids"),
+    (["-r", "-s", "1M", "--gpustream", "yes", "--gpuids", "0"],
+     "--gpustream must be auto|on|off"),
+    (["-r", "-s", "1M", "--ioengine", "spdk"],
+     "--ioengine must be auto|sync|aio|uring"),
+    (["-r", "-s", "1M", "--ioengine", "sync", "--iodepth", "2"],
+     "--ioengine sync requires --iodepth 1"),
 ])
 def test_config_errors(tmp_path, capsys, argv, message):
     assert port_main(argv + [str(tmp_path / "missing.bin")],
@@ -143,7 +153,7 @@ def test_config_errors(tmp_path, capsys, argv, message):
     assert message in capsys.readouterr().err
 
 
-def test_directory_path_is_refused(tmp_path, capsys):
+def test_directory_write_without_mkdirs_is_refused(tmp_path, capsys):
     """A directory is a dir-mode bench path: a write into it without
     --mkdirs is refused with the JAX package's hint."""
     assert port_main(["-w", "-s", "1M", str(tmp_path)], device="cpu") == 1

@@ -1,5 +1,7 @@
 """The port stands alone: no module of elbencho_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package."""
+chip_smoke.py, imports JAX or anything of the JAX package, or loads the
+JAX package's engine library (csrc/libioengine.so): the port builds its
+own from elbencho_tpu_torch/csrc/ioengine.cpp."""
 
 import ast
 import os
@@ -43,10 +45,18 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_reference_to_the_jax_engine_library(path):
+    with open(path) as f:
+        assert "libioengine.so" not in f.read()
+
+
 def test_importing_the_cli_loads_no_jax():
     code = ("import sys, elbencho_tpu_torch.cli, "
             "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify, "
-            "elbencho_tpu_torch.coordinator;"
+            "elbencho_tpu_torch.coordinator, elbencho_tpu_torch.utils.native, "
+            "elbencho_tpu_torch.workers.local_worker;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
