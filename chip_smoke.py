@@ -40,10 +40,25 @@ without printing a result otherwise. In order it:
    and --gpudirect, through the ring and (--gpubatch 16) the Python
    loop, and checks that the batch cuts the host->device copies
    sixteenfold for the same bytes;
-5. flips one byte of the file and checks that the --gpuverify read fails,
+5. --gpubench h2d, d2h and both, staged and --gpudirect, at -b 16M -s 4g
+   and at -b 4K -s 64M (-t 2 --iodepth 4): checks each run's bytes, ops
+   and H2D/D2H path-audit counters, prints MiB/s, the share of the host
+   link's bound (an assumed PCIe Gen5 x16, printed beside nvidia-smi's
+   own reading of the link) where the copies cross the link every op, the op latency's p50/p99 and
+   the dispatch and copy time per op; then traces a --gpudirect both run
+   and checks that on every stream each D2H copy starts after the H2D
+   copy from the same slot has ended;
+6. --gpuprofile: a --gpuverify read of the main path's file, the
+   headline --gpudirect read and --gpubench h2d, each one phase traced in
+   a child process of its own; checks the trace subdirectories' names (the JAX package's),
+   one H2D copy record per copy the counters report and one fingerprint
+   kernel record per launch, and prints each phase's device busy share,
+   its device time by kind, the host time in CUDA runtime calls, and the
+   traced rate beside the untraced one;
+7. flips one byte of the file and checks that the --gpuverify read fails,
    staged and through the fused ring with --gpudirect, with the kernel's
    integrity error and after launching the kernel;
-6. drives the paths of the later slices through the CLI, each a main path
+8. drives the paths of the later slices through the CLI, each a main path
    of its own with the kernel's launch count zeroed before it and read
    after it: a write+read striped over four 1 GiB files; the sharded
    training-ingest dataset of the JAX package's `--scenario epochs`
@@ -54,7 +69,11 @@ without printing a result otherwise. In order it:
    the smoke's time); each checks its entries, bytes, device copies and
    kernel launches, and prints which block loop it took (the dataset's
    and the small files' files are too short for the fused ring);
-7. prints the kernel line {"kernels": [...]} and, last, the result line
+9. runs the flagship step of entry() (xor scramble + the fingerprint
+   kernel) at 1 MiB and 16 MiB: the scrambled block must equal numpy's
+   xor, the (sum, xor) the plain version's and numpy's, one launch per
+   call; its launches count in the kernel line;
+10. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -74,6 +93,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -93,6 +113,7 @@ TIMING_POOL = 512 << 20       # distinct bytes the timing rotates over (> L2)
 TIMING_VIEWS = 4096           # at most this many distinct blocks per size
 INTEGRITY_ERROR = "on-device integrity check failed"
 PROFILE_MARGIN_S = 0.05        # idle host time at each end of a trace window
+PROFILE_WARMUP_BYTES = 4       # CudaWorkerContext.profile_warmup's copy
 
 
 class _Tee(io.TextIOBase):
@@ -410,8 +431,10 @@ def run_cli(args: "list[str]", json_path: str) -> "tuple[int, list[dict]]":
     return rc, recs
 
 
-def main_path(work: str) -> int:
-    """Drive the port's CLI; returns the fingerprint launches of the run."""
+def main_path(work: str, untraced: dict) -> int:
+    """Drive the port's CLI; returns the fingerprint launches of the run,
+    and keeps the first pass's READ rate in ``untraced`` (for the traced
+    --gpuverify read of the same file)."""
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
     path = os.path.join(work, "smoke.bin")
     common = ["-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -481,6 +504,8 @@ def main_path(work: str) -> int:
                 fail(f"pass '{name}': no direct H2D copy ran")
             if "cuda" not in rec["Device"]:
                 fail(f"pass '{name}' did not run on a CUDA device")
+            if i == 0 and is_read:
+                untraced["read, --gpuverify"] = rec["TpuHbmMiBPerSec"]
         if launches != want_launches:
             fail(f"pass '{name}': {launches} fingerprint launches, want "
                  f"{want_launches} (one per block read under --gpuverify)")
@@ -493,14 +518,14 @@ def loop_taken(rec: dict) -> str:
     return f"fused ring ({fused} ops)" if fused else "Python loop"
 
 
-def headline_pass(work: str, backend: str) -> None:
+def headline_pass(work: str, backend: str, untraced: dict) -> None:
     """bench.py's headline shape, a plain -r -t 2 -b 16M --iodepth 4 read
     of the main path's 4 GiB file, staged and --gpudirect, through the
     fused ring and through the Python loop: three runs of each, in
     alternating order; prints each one's medians and the ring's backend
     as the ring's log line reports it, and fails unless that is
     `backend`, the engine's probed stream backend. No claim rests on the
-    rates."""
+    rates. Keeps each run's median device rate in ``untraced``."""
     path = os.path.join(work, "smoke.bin")
     configs = (("staged, fused ring", ["--gpustream", "on"]),
                ("staged, Python loop", ["--gpustream", "off"]),
@@ -543,6 +568,8 @@ def headline_pass(work: str, backend: str) -> None:
               f"{med(lambda r: r['TpuTransferUSec'] / MAIN_BLOCKS):.1f} "
               f"us/op, inflight hwm {med(lambda r: r['TpuPipeInflightHwm'])}"
               f", full stalls {med(lambda r: r['TpuPipeFullStalls'])}")
+        untraced[f"headline read, {name}"] = med(
+            lambda r: r["TpuHbmMiBPerSec"])
     if not engaged:
         fail("the fused headline reads logged no engaged stream ring")
     if any(f"backend={backend}," not in e for e in engaged):
@@ -749,6 +776,347 @@ def losf_pass(work: str) -> int:
     return launches
 
 
+#: an H100's host link, PCIe Gen5 x16: 32 GT/s x 16 lanes x 128/130 / 8
+PCIE_GEN5_X16_BYTES_PER_SEC = 32e9 * 16 * 128 / 130 / 8
+
+
+def pcie_link() -> str:
+    """nvidia-smi's own line for the card's PCIe link, printed beside the
+    assumed Gen5 x16 bound (the chip machine reported no link)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.max,"
+             "pcie.link.width.max", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as err:
+        out = f"not read ({err})"
+    return out or "empty"
+
+
+def bench_run(name: str, args: "list[str]", json_path: str) -> dict:
+    """One --gpubench CLI run; fails unless it exits 0 with one TPUBENCH
+    record on a CUDA device. Returns the record."""
+    t0 = time.monotonic()
+    rc, recs = run_cli(args, json_path)
+    if rc != 0:
+        fail(f"pass '{name}' exited {rc}")
+    if [r["Phase"] for r in recs] != ["TPUBENCH"]:
+        fail(f"pass '{name}' recorded phases {[r['Phase'] for r in recs]}, "
+             f"want ['TPUBENCH']")
+    if "cuda" not in recs[0]["Device"]:
+        fail(f"pass '{name}' did not run on a CUDA device")
+    recs[0]["secs"] = time.monotonic() - t0
+    return recs[0]
+
+
+#: --gpubench shapes: the main path's block and size, and a 4 KiB block
+GPUBENCH_SHAPES = ((MAIN_BLOCK, MAIN_SIZE), (4 << 10, 64 << 20))
+GPUBENCH_THREADS = 2
+
+
+def gpubench_pass(work: str) -> dict:
+    """--gpubench h2d, d2h and both, staged and --gpudirect, at -b 16M -s
+    4g and -b 4K -s 64M (-t 2 --iodepth 4, as on the main path): each
+    run's bytes, ops and H2D/D2H path-audit counters must be what its
+    arguments imply. Prints MiB/s, the share of the link's bound where
+    the copies cross the link every op (a staged d2h copies from the fill
+    pool's host mirror, filled once: a host memcpy), the op latency's
+    p50/p99 and the dispatch and copy time per op. Then a traced
+    --gpudirect both run: on every stream each D2H copy must start after
+    the H2D copy before it, from the same slot, has ended. Returns the
+    records by (pattern, direct, block)."""
+    from elbencho_tpu_torch.stats.latency_histogram import LatencyHistogram
+    link_rate = PCIE_GEN5_X16_BYTES_PER_SEC
+    print(f"host link: ASSUMED PCIe Gen5 x16, {link_rate / 1e9:.2f} GB/s "
+          f"per direction; nvidia-smi pcie.link.gen.max, width.max: "
+          f"{pcie_link()}")
+    out = {}
+    for block, size in GPUBENCH_SHAPES:
+        ops = GPUBENCH_THREADS * -(-size // block)
+        for direct in (False, True):
+            for pattern in ("h2d", "d2h", "both"):
+                mode = f"{pattern}{', --gpudirect' if direct else ''}"
+                label = f"{block >> 10} KiB" if block < 1 << 20 else \
+                    f"{block >> 20} MiB"
+                name = f"--gpubench {mode}, {label} blocks"
+                rec = bench_run(name, [
+                    "--gpubench", "--gpubenchpat", pattern, "-t",
+                    str(GPUBENCH_THREADS), "-b", str(block), "-s", str(size),
+                    "--iodepth", "4", "--gpuids", "0",
+                    *(["--gpudirect"] if direct else [])],
+                    os.path.join(work, "gpubench.json"))
+                h2d = ops if pattern in ("h2d", "both") else 0
+                d2h = ops if pattern in ("d2h", "both") else 0
+                moved = GPUBENCH_THREADS * size * (2 if pattern == "both"
+                                                   else 1)
+                expect(name, rec, BytesLast=moved, TpuHbmBytes=moved,
+                       ops=ops, TpuStreamFusedOps=0,
+                       TpuH2dDirectOps=h2d if direct else 0,
+                       TpuH2dStagedOps=0 if direct else h2d,
+                       TpuD2hDirectOps=d2h if direct else 0,
+                       TpuD2hStagedOps=0 if direct else d2h)
+                histo = LatencyHistogram.from_dict(rec["IOLatHisto"])
+                if pattern == "h2d" or (pattern == "d2h" and direct):
+                    link_share = rec["TpuHbmMiBPerSec"] * (1 << 20) \
+                        / link_rate
+                    share = f"{link_share:.1%} of the link"
+                elif direct:
+                    share = "no link share (both directions per op)"
+                else:
+                    share = "no link share (its D2H is a host memcpy)"
+                print(f"  {name:<34} {rec['TpuHbmMiBPerSec']} MiB/s, "
+                      f"{share}; op latency p50 "
+                      f"{histo.percentile(50):.1f} us, p99 "
+                      f"{histo.percentile(99):.1f} us ({ops} ops); "
+                      f"dispatch {rec['TpuDispatchUSec'] / ops:.1f} us/op, "
+                      f"copy {rec['TpuTransferUSec'] / ops:.1f} us/op; "
+                      f"{rec['secs']:.1f} s")
+                out[pattern, direct, block] = rec
+    ordering_check(work)
+    return out
+
+
+#: trace event categories of work on the device (CUPTI's records)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def load_trace(trace_dir: str, want: "list[str]") -> "dict[str, list]":
+    """The complete events of each traced phase of one --gpuprofile run
+    (``want``: the subdirectory names, as the JAX package names them),
+    keyed by subdirectory; fails when a subdirectory or its trace is
+    missing, or a trace holds no device record."""
+    got = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if got != want:
+        fail(f"--gpuprofile wrote {got}, want {want}")
+    out = {}
+    for name in want:
+        path = os.path.join(trace_dir, name, "trace.json")
+        if not os.path.exists(path):
+            fail(f"--gpuprofile wrote no trace into {name}")
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        out[name] = [e for e in events if e.get("ph") == "X"]
+        if not any(e.get("cat") in DEVICE_CATS for e in out[name]):
+            fail(f"the --gpuprofile trace {name} holds no device record")
+    return out
+
+
+#: the CLI in a child process that prints its kernel launches at the end
+_CHILD_CLI = ("import sys; from elbencho_tpu_torch.cli import main; "
+              "from elbencho_tpu_torch.ops.verify import fingerprint_u32; "
+              "rc = main(sys.argv[1:]); "
+              "print('FINGERPRINT_LAUNCHES', fingerprint_u32.launches.count); "
+              "sys.exit(rc)")
+
+
+def traced_run(name: str, args: "list[str]", work: str,
+               want: "list[str]") -> "tuple[list, int, dict]":
+    """One --gpuprofile run of the CLI in a fresh child process, as a
+    user runs it: in one process that had already traced several phases,
+    torch.profiler lost the records of a thread's first copies of a later
+    trace (PERF.md section 7). Fails unless it exits 0 with the trace
+    subdirectories ``want`` on a CUDA device. Returns (records, the
+    child's fingerprint launches, trace events by subdirectory)."""
+    trace_dir = tempfile.mkdtemp(prefix="trace-", dir=work)
+    json_path = os.path.join(work, "traced.json")
+    if os.path.exists(json_path):
+        os.unlink(json_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_CLI, *args, "--nolive", "--jsonfile",
+         json_path, "--gpuprofile", trace_dir],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        fail(f"traced run '{name}' exited {proc.returncode}")
+    launches = int(proc.stdout.rsplit("FINGERPRINT_LAUNCHES", 1)[1].split()[0])
+    with open(json_path) as f:
+        recs = [json.loads(line) for line in f]
+    if any("cuda" not in r["Device"] for r in recs):
+        fail(f"traced run '{name}' did not run on a CUDA device")
+    return recs, launches, load_trace(trace_dir, want)
+
+
+def is_profile_warmup(event: dict) -> bool:
+    """The one 4-byte H2D copy each worker thread makes at the start of a
+    traced phase, not a copy the counters report."""
+    return event.get("cat") == "gpu_memcpy" and "HtoD" in event["name"] \
+        and event["args"].get("bytes") == PROFILE_WARMUP_BYTES
+
+
+def ordering_check(work: str) -> None:
+    """A traced --gpudirect both run (-b 16M -s 1g, -t 2): on each stream
+    the copies alternate H2D, D2H, and each D2H starts after its H2D,
+    which reads the same registered slot, has ended."""
+    (rec,), _, traces = traced_run(
+        "--gpubench both, --gpudirect", [
+            "--gpubench", "--gpubenchpat", "both", "-t", "2", "-b", "16M",
+            "-s", "1g", "--iodepth", "4", "--gpuids", "0", "--gpudirect"],
+        work, ["001_tpubench"])
+    by_stream: "dict[int, list]" = {}
+    for e in traces["001_tpubench"]:
+        if e.get("cat") == "gpu_memcpy" and not is_profile_warmup(e):
+            by_stream.setdefault(e["args"].get("stream", e.get("tid")),
+                                 []).append(e)
+    n_ops = 0
+    for stream, evs in by_stream.items():
+        evs.sort(key=lambda e: e["ts"])
+        kinds = ["HtoD" if "HtoD" in e["name"] else "DtoH" if "DtoH" in
+                 e["name"] else e["name"] for e in evs]
+        if kinds != ["HtoD", "DtoH"] * (len(evs) // 2):
+            fail(f"--gpudirect both, stream {stream}: the copies do not "
+                 f"alternate H2D, D2H: {kinds[:8]}...")
+        for h2d, d2h in zip(evs[::2], evs[1::2]):
+            if d2h["ts"] < h2d["ts"] + h2d["dur"]:
+                fail(f"--gpudirect both, stream {stream}: a D2H copy "
+                     f"started at {d2h['ts']} us, before the H2D copy "
+                     f"from its slot ended at {h2d['ts'] + h2d['dur']} us")
+        n_ops += len(evs) // 2
+    if n_ops != rec["TpuH2dDirectOps"] or n_ops != rec["TpuD2hDirectOps"] \
+            or n_ops != 2 * (1 << 30) // MAIN_BLOCK:
+        fail(f"--gpudirect both: the trace holds {n_ops} H2D+D2H pairs, "
+             f"the counters {rec['TpuH2dDirectOps']} H2D and "
+             f"{rec['TpuD2hDirectOps']} D2H copies")
+    print(f"  --gpudirect both, traced: {n_ops} ops on {len(by_stream)} "
+          f"streams, each D2H after its H2D from the same slot")
+
+
+def busy_share(events: list, elapsed_usec: int) -> "tuple[float, dict]":
+    """The device's busy share of a phase: the union of its device
+    records' intervals over the phase's wall time; and the device time by
+    kind."""
+    events = [e for e in events if e.get("cat") in DEVICE_CATS]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    kinds: "dict[str, float]" = {}
+    for e in events:
+        kind = e["cat"] if e["cat"] != "gpu_memcpy" else e["name"].split(
+            " (")[0]
+        kinds[kind] = kinds.get(kind, 0.0) + e["dur"]
+    return busy / max(elapsed_usec, 1), kinds
+
+
+def runtime_totals(events: list) -> "dict[str, float]":
+    """Host time (us) in the four costliest CUDA runtime calls of a traced
+    phase, over all threads: a wait shows as cudaMemcpyAsync (a result
+    read to the host) or cudaEventSynchronize (the transfer ring)."""
+    totals: "dict[str, float]" = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime":
+            totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"]
+    return dict(sorted(totals.items(), key=lambda kv: -kv[1])[:4])
+
+
+def gpuprofile_pass(work: str, untraced: dict) -> None:
+    """Three --gpuprofile runs of the CLI, each in a child process and
+    each tracing one phase, the first of its process (later traces of one
+    process lost records, see traced_run): a --gpuverify read of the main
+    path's file (the fused ring), the headline --gpudirect read, and
+    --gpubench h2d. The subdirectories must carry the JAX package's
+    names; each trace one H2D copy record per copy the counters report,
+    and one fingerprint kernel record per launch. Prints each traced
+    phase's device busy share and its rate beside the untraced run's
+    (``untraced``: rates by run name)."""
+    path = os.path.join(work, "smoke.bin")
+    common = ["-t", "2", "-b", "16M", "--iodepth", "4", "--gpuids", "0"]
+    runs = (
+        ("read, --gpuverify", ["-r", "--verify", "7", "--gpuverify",
+                               "--gpustream", "on", *common, path],
+         ["001_readfiles"]),
+        ("headline read, --gpudirect, fused ring",
+         ["-r", "--gpudirect", "--gpustream", "on", *common, path],
+         ["001_readfiles"]),
+        ("--gpubench h2d", ["--gpubench", "--gpubenchpat", "h2d", "-s",
+                            f"{MAIN_SIZE >> 20}M", *common],
+         ["001_tpubench"]),
+    )
+    print("traced runs (--gpuprofile, torch.profiler with CPU and CUDA "
+          "activity):")
+    for name, args, dirs in runs:
+        recs, launches, traces = traced_run(name, args, work, dirs)
+        for rec, sub in zip(recs, dirs, strict=True):
+            events = traces[sub]
+            warmups = sum(map(is_profile_warmup, events))
+            h2d = sum(e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]
+                      for e in events) - warmups
+            kernels = sum(e.get("cat") == "kernel" and
+                          "fingerprint_u32_kernel" in e["name"]
+                          for e in events)
+            copies = rec["TpuH2dDirectOps"] + rec["TpuH2dStagedOps"]
+            if h2d != copies or copies == 0:
+                fail(f"traced run '{name}' {rec['Phase']}: {h2d} H2D copy "
+                     f"records, the counters report {copies}")
+            if kernels != launches:
+                fail(f"traced run '{name}' {rec['Phase']}: {kernels} "
+                     f"fingerprint kernel records, {launches} launches")
+            share, kinds = busy_share(events, rec["ElapsedUSecLast"])
+            rate = rec["TpuHbmMiBPerSec"]
+            print(f"  {name} {rec['Phase']}: device busy {share:.2%} of "
+                  f"the phase's {rec['ElapsedUSecLast']} us (idle "
+                  f"{1 - share:.2%}); device us by kind "
+                  f"{ {k: round(v, 1) for k, v in kinds.items()} }; "
+                  f"{h2d} H2D records = {copies} copies (and {warmups} "
+                  f"warm-up copies), {kernels} "
+                  f"fingerprint records = {launches} launches; traced "
+                  f"{rate} MiB/s, untraced {untraced[name]} MiB/s")
+            calls = {k: round(v, 1) for k, v in runtime_totals(events).items()}
+            print(f"    host us in CUDA runtime calls, both threads: {calls}")
+
+
+def entry_pass(dev) -> int:
+    """The flagship step of entry() on the card, at entry()'s 1 MiB zero
+    block and at a random 16 MiB block: the scrambled block must equal
+    numpy's xor of block and bits, and the kernel's (sum, xor) its plain
+    version's and numpy's; each call launches the kernel once. Returns
+    the kernel's launches in the two calls, and prints the step's device
+    time at 16 MiB."""
+    import numpy as np
+    import torch
+    from elbencho_tpu_torch.entry import entry
+    from elbencho_tpu_torch.models.workloads import example_block
+    from elbencho_tpu_torch.ops.verify import (fingerprint_u32,
+                                               fingerprint_u32_plain)
+    step, args = entry()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    block16, bits16 = example_block(MAIN_BLOCK, dev, gen)
+    block16.copy_(rand_words(MAIN_BLOCK // 4, gen, dev))
+    fingerprint_u32.launches.reset()
+    for label, (block, bits) in (("1 MiB, entry()", args),
+                                 ("16 MiB, random block", (block16, bits16))):
+        before = fingerprint_u32.launches.count
+        scrambled, total, xor = step(block, bits)
+        torch.cuda.synchronize()
+        if fingerprint_u32.launches.count - before != 1:
+            fail(f"entry() step at {label}: "
+                 f"{fingerprint_u32.launches.count - before} kernel "
+                 f"launches, want 1")
+        want = block.cpu().numpy().view(np.uint32) \
+            ^ bits.cpu().numpy().view(np.uint32)
+        if scrambled.device != block.device or not np.array_equal(
+                scrambled.cpu().numpy().view(np.uint32), want):
+            fail(f"entry() step at {label}: scrambled block != numpy xor")
+        got = [int(total) & MASK, int(xor) & MASK]
+        plain = [v & MASK for v in fingerprint_u32_plain(scrambled).tolist()]
+        ref = [int(want.sum(dtype=np.uint64)) & MASK,
+               int(np.bitwise_xor.reduce(want))]
+        if not got == plain == ref:
+            fail(f"entry() step at {label}: kernel {got}, plain {plain}, "
+                 f"numpy {ref}")
+        print(f"  entry() step, {label}: scrambled equals numpy's xor; "
+              f"(sum, xor) = ({got[0]:#010x}, {got[1]:#010x}) equal to the "
+              f"plain version and numpy; 1 launch")
+    launches = fingerprint_u32.launches.count
+    ms, _ = cuda_ms(lambda i=0: step(block16, bits16), 50)
+    print(f"  entry() step at 16 MiB: {ms:.4f} ms per call on the device "
+          f"(xor + fingerprint kernel)")
+    return launches
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -833,14 +1201,20 @@ def main() -> int:
         fail(f"{work} has {free >> 20} MiB free; the dataset pass needs "
              f"{need >> 20} MiB (its 8 GiB plus 1 GiB of headroom)")
     try:
-        launches = main_path(work)
-        headline_pass(work, engine.stream_backend_name())
+        untraced: "dict[str, float]" = {}
+        launches = main_path(work, untraced)
+        headline_pass(work, engine.stream_backend_name(), untraced)
         gpubatch_pass(work)
+        bench = gpubench_pass(work)
+        untraced["--gpubench h2d"] = \
+            bench["h2d", False, MAIN_BLOCK]["TpuHbmMiBPerSec"]
+        gpuprofile_pass(work, untraced)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)
         launches += dataset_pass(work)
         launches += losf_pass(work)
+        launches += entry_pass(dev)
         kernel["launches"] = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)

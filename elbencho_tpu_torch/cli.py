@@ -10,6 +10,12 @@ source/Main.cpp:14-69): parse args, validate, run the local coordinator.
     # --gpubatch: one host->device copy per 16 blocks of a read
     python -m elbencho_tpu_torch -r -t 2 -b 1M --gpuids 0 --gpubatch 16 \\
         /path/file
+    # --gpubench: host<->device copies without storage (no bench path)
+    python -m elbencho_tpu_torch --gpubench --gpubenchpat both -t 2 \\
+        -b 16M -s 4g --iodepth 4 [--gpudirect]
+    # --gpuprofile: a torch.profiler trace per device phase, in DIR/NNN_*
+    python -m elbencho_tpu_torch -r -b 16M --gpuids 0 --gpuverify \\
+        --verify 7 --gpuprofile /path/traces /path/file
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ def main(argv: "list[str] | None" = None,
         print(f"elbencho-tpu-torch {__version__} (PyTorch/CUDA device "
               f"data path)")
         return 0
-    if not cfg.paths:
+    if not cfg.paths and not cfg.run_gpu_bench:
         build_arg_parser().print_help()
         return 1
     try:

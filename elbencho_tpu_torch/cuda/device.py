@@ -298,6 +298,8 @@ class CudaWorkerContext:
         # flight (the ring drains it before the rotation comes back).
         self._dev_slots: "list[torch.Tensor]" = []
         self._bounce: "list[torch.Tensor]" = []
+        self._profile_warmup: "tuple[torch.Tensor, torch.Tensor] | None" \
+            = None
         self._h2d_agg_bytes = 0  # bytes staged in the active agg buffer
         self._h2d_submits = 0
         self._last_ingested = None
@@ -503,6 +505,25 @@ class CudaWorkerContext:
         --gpubudget."""
         self._flush_h2d_batch()
         self._pipeline.flush()
+
+    def profile_warmup(self) -> None:
+        """One 4-byte host->device copy on this worker's stream, made at
+        the start of each phase that --gpuprofile traces, outside the
+        path-audit counters. In a process that had run chip_smoke.py's
+        kernel phase first, torch.profiler left one copy record out of
+        every traced read, and none once each worker thread had made this
+        copy (chip_profile_records.py). The first call, from worker
+        prepare, allocates the two buffers (``empty``: no fill kernel)."""
+        if self.stream is None:
+            return
+        if self._profile_warmup is None:
+            self._profile_warmup = (
+                torch.empty(1, dtype=torch.int32, device=self.device),
+                torch.zeros(1, dtype=torch.int32).pin_memory())
+        dst, src = self._profile_warmup
+        with self._on_stream():
+            dst.copy_(src, non_blocking=True)
+        self.stream.synchronize()
 
     def warmup_transfer(self) -> None:
         """Allocate the H2D ring's device slots and bounce buffers outside

@@ -88,6 +88,12 @@ UNJOURNALED_PHASES = frozenset({
     BenchPhase.SYNC, BenchPhase.DROPCACHES,
 })
 
+#: phases whose workers drive the device data path (H2D staging on reads,
+#: device-originated fills on writes, the transfer bench itself), each
+#: traced under --gpuprofile; metadata phases never touch the device
+GPU_PROFILE_PHASES = (BenchPhase.CREATEFILES, BenchPhase.READFILES,
+                      BenchPhase.TPUBENCH)
+
 
 # bucket-flavored names used in S3 mode (reference: MKBUCKETS/RMBUCKETS/...)
 PHASE_NAMES_S3 = {

@@ -34,7 +34,7 @@ from collections import deque
 
 import numpy as np
 
-from ..phases import BenchPathType, BenchPhase
+from ..phases import GPU_PROFILE_PHASES, BenchPathType, BenchPhase
 from ..toolkits import logger
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
@@ -110,10 +110,19 @@ class LocalWorker(Worker):
                 dispatch_budget_usec=cfg.gpu_dispatch_budget_usec,
                 batch_blocks=max(cfg.gpu_batch_blocks, 1),
                 staging_pool=self._staging_pool, device=cfg.device)
-            if cfg.run_create_files and not cfg.integrity_check_salt:
+            # --gpubench d2h/both draws on the fill pool, h2d/both on the
+            # H2D ring: both are built here, outside the timed phase. The
+            # JAX package skips the transfer warmup under --tpudirect,
+            # where it would pin HBM staging blocks; here it allocates
+            # only the device ring slots the first copy would allocate.
+            bench = cfg.gpu_bench_pattern if cfg.run_gpu_bench else ""
+            if (cfg.run_create_files or bench in ("d2h", "both")) \
+                    and not cfg.integrity_check_salt:
                 self._gpu.warmup_fill()  # device fill outside timed phase
-            if cfg.run_read_files:
+            if cfg.run_read_files or bench in ("h2d", "both"):
                 self._gpu.warmup_transfer()
+            if cfg.gpu_profile_dir:
+                self._gpu.profile_warmup()  # its buffers, outside phases
         self._rand_offset_algo = RandAlgoGoldenPrime(seed=None)
 
     def cleanup(self) -> None:
@@ -148,6 +157,9 @@ class LocalWorker(Worker):
                     continue
                 self.reset_stats()
                 try:
+                    if self.cfg.gpu_profile_dir and self._gpu is not None \
+                            and phase in GPU_PROFILE_PHASES:
+                        self._gpu.profile_warmup()
                     self._num_iops_submitted = 0
                     self._dispatch_phase(phase)
                     self.finish_phase_stats()
@@ -166,8 +178,11 @@ class LocalWorker(Worker):
     def _dispatch_phase(self, phase: BenchPhase) -> None:
         """Phase x path type -> loop (reference: the POSIX branches of
         the JAX package's _dispatch_phase_inner)."""
-        if phase in (BenchPhase.CREATEDIRS, BenchPhase.DELETEDIRS,
-                     BenchPhase.STATDIRS):
+        if phase == BenchPhase.TPUBENCH:
+            from .gpubench import run_gpubench_phase
+            run_gpubench_phase(self)
+        elif phase in (BenchPhase.CREATEDIRS, BenchPhase.DELETEDIRS,
+                       BenchPhase.STATDIRS):
             self._dir_mode_iterate_dirs(phase)
         elif self.cfg.bench_path_type == BenchPathType.DIR:
             self._dir_mode_iterate_files(phase)
@@ -659,6 +674,14 @@ class LocalWorker(Worker):
                     f"data integrity check failed at file offset "
                     f"{file_off}: expected {err.want:#x}, "
                     f"got {err.got:#x}{hint}") from None
+
+    def rotated_staging_buf(self) -> memoryview:
+        """The staging slot serving the next op under the worker's
+        rotation discipline (the block loops rotate inline); the
+        hand-out point of --gpubench. The JAX package also books the
+        hand-out in its pool's reuse counters, which the port's pool does
+        not keep."""
+        return self._io_bufs[self._num_iops_submitted % len(self._io_bufs)]
 
     def _sync_gpu_usec(self) -> None:
         """Mirror the context's split timing counters into this worker's

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of elbencho_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package, or loads the
-JAX package's engine library (csrc/libioengine.so): the port builds its
-own from elbencho_tpu_torch/csrc/ioengine.cpp."""
+"""The port stands alone: no module of elbencho_tpu_torch, and neither
+chip_smoke.py nor chip_profile_records.py, imports JAX or anything of the
+JAX package, or loads the JAX package's engine library
+(csrc/libioengine.so): the port builds its own from
+elbencho_tpu_torch/csrc/ioengine.cpp."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "elbencho_tpu")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "chip_profile_records.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "elbencho_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -56,7 +58,9 @@ def test_importing_the_cli_loads_no_jax():
     code = ("import sys, elbencho_tpu_torch.cli, "
             "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify, "
             "elbencho_tpu_torch.coordinator, elbencho_tpu_torch.utils.native, "
-            "elbencho_tpu_torch.workers.local_worker;"
+            "elbencho_tpu_torch.workers.local_worker, "
+            "elbencho_tpu_torch.workers.gpubench, "
+            "elbencho_tpu_torch.models.workloads, elbencho_tpu_torch.entry;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
