@@ -69,11 +69,27 @@ without printing a result otherwise. In order it:
    the smoke's time); each checks its entries, bytes, device copies and
    kernel launches, and prints which block loop it took (the dataset's
    and the small files' files are too short for the fused ring);
-9. runs the flagship step of entry() (xor scramble + the fingerprint
+9. the slice phase, run between 6 and 7 on the main path's file:
+   --gpuslice through the CLI on the 4 GiB file
+   (docs/pod-slice.md's -t 4 -s 4G -b 16M, one device), --redistspec
+   alltoall and replicate, through the fused ring and the preadv loop,
+   checking that every byte is ingested and redistributed once in 256
+   stripes with one fingerprint launch each (and one warm-up launch per
+   run), and printing the rate, the
+   redistribution's time per stripe and best rate beside a same-card
+   copy's bound; then SliceRunner over 4 and 8 mesh slots on the card
+   (16 MiB shards, every --redistspec): each device's data equals the
+   plain version's, the fingerprint the host's, a flipped word is
+   refused; then each collective --gpubench pattern (ici, allgather,
+   reducescatter, alltoall, psum) at -s 1G -b 16M: bytes, ops, p50/p99,
+   and one step against its plain version, and ici's and alltoall's
+   copies over 8 slots of the card against theirs (chip_multigpu.py runs
+   these paths over distinct cards);
+10. runs the flagship step of entry() (xor scramble + the fingerprint
    kernel) at 1 MiB and 16 MiB: the scrambled block must equal numpy's
    xor, the (sum, xor) the plain version's and numpy's, one launch per
    call; its launches count in the kernel line;
-10. prints the kernel line {"kernels": [...]} and, last, the result line
+11. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -1117,6 +1133,198 @@ def entry_pass(dev) -> int:
     return launches
 
 
+#: the slice pass: docs/pod-slice.md's documented command (-t 4 -s 4G
+#: -b 16M) on the main path's file, one stripe of 16 MiB per device
+SLICE_STRIPES = MAIN_SIZE // MAIN_BLOCK
+SLICE_SPECS = ("alltoall", "host", "chip", "replicate")
+
+
+def slice_pass(work: str) -> int:
+    """--gpuslice through the CLI on the main path's 4 GiB file, mesh of
+    --gpuids 0 (one device): --redistspec alltoall and replicate, each
+    through the fused ring (--gpustream on) and the preadv loop (off).
+    Each run must ingest and redistribute every byte once (TpuHbmBytes =
+    ShardIngestMiB = IciRedistMiB = 4 GiB), in 256 stripes, with one
+    fingerprint launch per stripe (one device, one part each) and one
+    for the runner's warm-up; the
+    stripe fingerprints are held against the host's by the phase itself.
+    Prints the phase's MiB/s, the redistribution's time per stripe (from
+    dispatch to materialised, as IciRedistUSec counts it: a wait for the
+    stripe's host->device copy included) and best rate beside the bound
+    of a same-card copy of the stripe (each byte read and written once at
+    the card's memory rate). Returns the
+    kernel's launches in the four runs."""
+    path = os.path.join(work, "smoke.bin")
+    bound_us = 2 * MAIN_BLOCK / HBM_BYTES_PER_SEC * 1e6
+    bound_gbit = MAIN_BLOCK * 8 / (bound_us * 1e3)
+    launches = 0
+    for spec in ("alltoall", "replicate"):
+        for stream in ("on", "off"):
+            name = f"--gpuslice --redistspec {spec} --gpustream {stream}"
+            recs, n = run_pass(name, [
+                "--gpuslice", "-t", "4", "-s", f"{MAIN_SIZE >> 20}M", "-b",
+                "16M", "--gpuids", "0", "--redistspec", spec, "--gpustream",
+                stream, path], os.path.join(work, "slice.json"),
+                ["TPUSLICE"])
+            rec = recs[0]
+            expect(name, rec, TpuHbmBytes=MAIN_SIZE,
+                   ShardIngestMiB=MAIN_SIZE >> 20,
+                   IciRedistMiB=MAIN_SIZE >> 20, EntriesLast=SLICE_STRIPES,
+                   BytesLast=MAIN_SIZE, ops=SLICE_STRIPES)
+            if n != SLICE_STRIPES + 1:
+                fail(f"pass '{name}': {n} fingerprint launches, want "
+                     f"{SLICE_STRIPES + 1} (one per stripe, and the "
+                     f"runner's warm-up)")
+            launches += n
+            print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, redistribution "
+                  f"{rec['IciRedistUSec'] / SLICE_STRIPES:.1f} us/stripe "
+                  f"from dispatch (copy bound {bound_us:.1f} us), best "
+                  f"{rec['IciGbpsHwm']} Gbit/s (bound {bound_gbit:,.0f} "
+                  f"Gbit/s: 2 x 16 MiB at "
+                  f"{HBM_BYTES_PER_SEC / 1e12:.2f} TB/s); {n} launches")
+    return launches
+
+
+def ready(shard):
+    """(shard, an event after the work queued so far on its device's
+    current stream): SliceRunner's streams wait for it, as they wait for a
+    feeder's copy."""
+    import torch
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(shard.device))
+    return shard, event
+
+
+def mesh_name(devices) -> str:
+    """"8 slots of cuda:0" for repeated devices, "4 devices" for distinct
+    ones."""
+    if len(devices) > 1 and len(set(devices)) == 1:
+        return f"{len(devices)} slots of {devices[0]}"
+    return f"{len(devices)} device(s)"
+
+
+def slice_runner_pass(dev) -> None:
+    """SliceRunner over 4 and 8 mesh slots on the one card (check_slice_
+    runner). Launches here compare and do not count in the kernel line."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    for n in (4, 8):
+        check_slice_runner([dev] * n, gen)
+
+
+def check_slice_runner(devices, gen) -> None:
+    """SliceRunner over a mesh of ``devices`` (slots of one device or
+    distinct devices), 16 MiB shards, every --redistspec: each device's
+    buffer must lie on its device and equal the plain version's (torch
+    indexing of the stripe), the folded fingerprint the host's, with one
+    launch per device part; a stripe with one flipped word must raise
+    SliceFingerprintError."""
+    import numpy as np
+    import torch
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    from elbencho_tpu_torch.parallel.mesh import make_ingest_mesh
+    from elbencho_tpu_torch.parallel.slice_phase import (
+        SliceFingerprintError, SliceRunner, host_fingerprint, target_layout)
+    words, n = MAIN_BLOCK // 4, len(devices)
+    mesh = make_ingest_mesh(devices)
+    hosts, chips = mesh.shape
+    name = f"SliceRunner {hosts}x{chips} over {mesh_name(devices)}"
+    stripe = rand_words(n * words, gen, devices[0]).reshape(n, words)
+    want = host_fingerprint(stripe.cpu().numpy().view(np.uint32))
+    for spec in SLICE_SPECS:
+        runner = SliceRunner(mesh, spec, words)
+        runner.warmup()
+        shards = {d: ready(stripe[d].to(devices[d], copy=True))
+                  for d in range(n)}
+        before = fingerprint_u32.launches.count
+        handle = runner.launch(runner.assemble(shards))
+        got_sum, got_xor, usec = runner.complete(handle)
+        launches = fingerprint_u32.launches.count - before
+        layout = target_layout(spec, hosts, chips, words)
+        for d, (rows, (lo, hi), _part) in enumerate(layout):
+            out = handle["out"][d]
+            if out.device != devices[d] or not torch.equal(
+                    out.to(stripe.device), stripe[rows, lo:hi]):
+                fail(f"{name} {spec}: device {d}'s buffer != the plain "
+                     f"version")
+        if (got_sum, got_xor) != want or launches != n:
+            fail(f"{name} {spec}: fingerprint ({got_sum:#x}, "
+                 f"{got_xor:#x}) vs host {want}, {launches} launches "
+                 f"(want {n})")
+        runner.verify(got_sum, got_xor, *want, 0)
+        shards[n - 1][0][words // 3] ^= 1 << 7
+        shards[n - 1] = ready(shards[n - 1][0])
+        bad = runner.complete(runner.launch(runner.assemble(shards)))
+        try:
+            runner.verify(bad[0], bad[1], *want, 1)
+            fail(f"{name} {spec}: a flipped word was not refused")
+        except SliceFingerprintError:
+            pass
+        gbit = n * MAIN_BLOCK * 8 / (usec * 1e3)
+        print(f"  {name}, {spec}: every device buffer equals the plain "
+              f"version, fingerprint equals the host's, {launches} "
+              f"launches, flipped word refused; redistribution {usec} us "
+              f"({gbit:,.1f} Gbit/s) for {n} x 16 MiB")
+        del runner, handle
+
+
+def check_collective_step(pattern: str, devices, gen) -> str:
+    """One step of a collective pattern over ``devices`` on random input
+    against its plain version (per device for ici); returns the route."""
+    import torch
+    from elbencho_tpu_torch.workers.gpubench import (CollectiveBench,
+                                                     collective_plain)
+    bench = CollectiveBench(pattern, devices, MAIN_BLOCK)
+    bench.arrays = [rand_words(MAIN_BLOCK // 4, gen, d) for d in devices]
+    got = bench.compute()
+    want = collective_plain(pattern, bench.arrays)
+    same = all(g.device == w.device and torch.equal(g, w)
+               for g, w in zip(got, want)) \
+        if pattern == "ici" else got == want
+    if not same:
+        fail(f"CollectiveBench {pattern} over {mesh_name(devices)}: one "
+             f"step differs from the plain version")
+    return bench.route
+
+
+COLLECTIVE_SIZE = 1 << 30      # -s 1G of the collective patterns
+
+
+def collective_pass(work: str, dev) -> None:
+    """Each collective --gpubench pattern through the CLI at -s 1G -b 16M
+    on --gpuids 0 (n = 1: 64 steps of 16 MiB): bytes and ops, the op
+    latency's p50/p99; then one step on random input against the plain
+    version (torch ops over the per-device tensors); then ici's and
+    alltoall's copies over 8 slots of the card against the plain
+    version (NCCL takes distinct devices, so the reductions run at n = 1
+    only)."""
+    import torch
+    from elbencho_tpu_torch.stats.latency_histogram import LatencyHistogram
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    steps = COLLECTIVE_SIZE // MAIN_BLOCK
+    for pattern in ("ici", "allgather", "reducescatter", "alltoall",
+                    "psum"):
+        name = f"--gpubench {pattern}"
+        rec = bench_run(name, ["--gpubench", "--gpubenchpat", pattern,
+                               "--gpuids", "0", "-s",
+                               f"{COLLECTIVE_SIZE >> 20}M", "-b", "16M"],
+                        os.path.join(work, "collective.json"))
+        expect(name, rec, BytesLast=COLLECTIVE_SIZE,
+               TpuHbmBytes=COLLECTIVE_SIZE, ops=steps)
+        route = check_collective_step(pattern, [dev], gen)
+        histo = LatencyHistogram.from_dict(rec["IOLatHisto"])
+        print(f"  {name:<26} route {route}: {rec['TpuHbmMiBPerSec']} "
+              f"MiB/s, op latency p50 {histo.percentile(50):.1f} us, p99 "
+              f"{histo.percentile(99):.1f} us ({steps} steps of 16 MiB); one "
+              f"step equals the plain version; {rec['secs']:.1f} s")
+    for pattern in ("ici", "alltoall"):
+        route = check_collective_step(pattern, [dev] * 8, gen)
+        print(f"  CollectiveBench {pattern} over 8 slots of {dev}, route "
+              f"{route}: one step equals the plain version")
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -1209,6 +1417,9 @@ def main() -> int:
         untraced["--gpubench h2d"] = \
             bench["h2d", False, MAIN_BLOCK]["TpuHbmMiBPerSec"]
         gpuprofile_pass(work, untraced)
+        launches += slice_pass(work)
+        slice_runner_pass(dev)
+        collective_pass(work, dev)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

@@ -65,7 +65,7 @@ class Coordinator:
         cfg = self.cfg
         if not cfg.gpu_profile_dir:
             return None
-        if not (cfg.gpu_ids or cfg.run_gpu_bench):
+        if not (cfg.gpu_ids or cfg.run_gpu_bench or cfg.run_gpu_slice):
             return None
         if phase not in GPU_PROFILE_PHASES:
             return None
@@ -94,8 +94,9 @@ class Coordinator:
         try:
             if self.cfg.device is None:
                 import torch
-                for gpu_id in self.cfg.gpu_ids:
-                    torch.cuda.synchronize(gpu_id)
+                count = torch.cuda.device_count()
+                for gpu_id in set(self.cfg.gpu_ids) or range(count):
+                    torch.cuda.synchronize(gpu_id % count)
             time.sleep(PROFILE_MARGIN_S)
             profiler.stop()
             profiler.export_chrome_trace(os.path.join(trace_dir,

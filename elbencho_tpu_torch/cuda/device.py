@@ -58,21 +58,34 @@ PATH_AUDIT_COUNTERS = (
     ("stream_fused_ops", "TpuStreamFusedOps"),
 )
 
+#: --gpuslice counters (workers/gpuslice.py), owned by the worker, not
+#: by its device context: the slice phase runs with or without one
+PATH_AUDIT_WORKER_COUNTERS = (
+    ("shard_ingest_mib", "ShardIngestMiB"),
+    ("ici_redist_mib", "IciRedistMiB"),
+    ("ici_redist_usec", "IciRedistUSec"),
+    ("ici_gbps_hwm", "IciGbpsHwm"),
+)
+
 #: counters that merge across workers as MAX, not sum: a high-water mark
-#: summed over workers would report a depth no single ring ever reached
-PATH_AUDIT_MAX_KEYS = frozenset({"TpuPipeInflightHwm"})
+#: summed over workers would report a depth (or a rate) no single ring
+#: (or stripe) ever reached
+PATH_AUDIT_MAX_KEYS = frozenset({"TpuPipeInflightHwm", "IciGbpsHwm"})
 
 
 def sum_path_audit_counters(workers) -> dict:
     """Total the path-audit counters over the workers' device contexts
-    (keyed by JSON name); PATH_AUDIT_MAX_KEYS entries merge as max."""
-    totals = {key: 0 for _, key in PATH_AUDIT_COUNTERS}
+    and the worker-owned slice counters (keyed by JSON name);
+    PATH_AUDIT_MAX_KEYS entries merge as max."""
+    totals = {key: 0 for _, key in PATH_AUDIT_COUNTERS
+              + PATH_AUDIT_WORKER_COUNTERS}
     for w in workers:
         ctx = getattr(w, "_gpu", None)
-        if ctx is None:
-            continue
-        for attr, key in PATH_AUDIT_COUNTERS:
-            val = getattr(ctx, attr)
+        pairs = [(w, attr, key) for attr, key in PATH_AUDIT_WORKER_COUNTERS]
+        if ctx is not None:
+            pairs += [(ctx, attr, key) for attr, key in PATH_AUDIT_COUNTERS]
+        for owner, attr, key in pairs:
+            val = getattr(owner, attr)
             if key in PATH_AUDIT_MAX_KEYS:
                 totals[key] = max(totals[key], val)
             else:
@@ -112,16 +125,19 @@ class TransferPipeline:
         self.inflight_hwm = 0
         self.ops = 0
 
-    def submit(self, submit_fn) -> None:
-        """Issue one transfer (submit_fn enqueues it on the stream) into
-        the ring, then drain to at most depth-1 in flight: with depth
-        rotating buffers, the buffer reused next is then drained."""
+    def submit(self, submit_fn, stream=None):
+        """Start one transfer (submit_fn enqueues it on the stream: the
+        pipeline's, or ``stream``) into the ring, then drain to at most
+        depth-1 in flight: with depth rotating buffers, the buffer reused
+        next is then drained. Returns the transfer's completion event
+        (None on the CPU)."""
+        stream = stream if stream is not None else self.stream
         t0 = time.perf_counter_ns()
         submit_fn()
         event = None
-        if self.stream is not None:
+        if stream is not None:
             event = torch.cuda.Event()
-            event.record(self.stream)
+            event.record(stream)
         t1 = time.perf_counter_ns()
         self.dispatch_usec += (t1 - t0) // 1000
         self.ops += 1
@@ -130,6 +146,7 @@ class TransferPipeline:
             self.inflight_hwm = len(self._ring)
         while len(self._ring) >= self.depth:
             self._drain_one(count_stall=True)
+        return event
 
     def note_dispatch(self, usec: int) -> None:
         """Account host-side submit cost of a transfer issued outside the

@@ -190,10 +190,11 @@ def stream_scratch(device_index: int, stream_id: int, make):
 def fingerprint_u32(words: torch.Tensor) -> torch.Tensor:
     """(sum mod 2^32, xor) of a contiguous 1-D int32 tensor of words, as
     a (2,) int32 tensor of uint32 bits. A CUDA tensor goes through the
-    CUDA kernel on the current stream, one launch and no synchronisation
-    (the first call on a stream also zero-fills that stream's scratch,
-    once); a CPU tensor through the plain version. Any other device
-    raises."""
+    CUDA kernel on its device's current stream, one launch and no
+    synchronisation (the first call on a stream also zero-fills that
+    stream's scratch, once); the tensor's device is made the current one
+    for the launch, whichever device the caller left current. A CPU
+    tensor goes through the plain version. Any other device raises."""
     if words.dtype != torch.int32 or words.dim() != 1:
         raise ValueError(f"fingerprint_u32 takes a 1-D int32 tensor, got "
                          f"{words.dtype} of shape {tuple(words.shape)}")
@@ -211,13 +212,16 @@ def fingerprint_u32(words: torch.Tensor) -> torch.Tensor:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms, per_sm = launch_shape(idx)
     plan = fingerprint_plan(words.numel(), words.data_ptr() % 16, sms, per_sm)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = stream_scratch(idx, stream, lambda: torch.zeros(
-        2 + 2 * sms * per_sm, dtype=torch.int32, device=dev))
-    out = torch.empty(2, dtype=torch.int32, device=dev)
-    err = kernel(words.data_ptr(), plan.head, plan.n_vec, plan.chunk,
-                 plan.grid, plan.tail, out.data_ptr(), scratch.data_ptr(),
-                 stream)
+    # a launch into a stream of another device than the current one
+    # fails: a caller driving several devices leaves only one current
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = stream_scratch(idx, stream, lambda: torch.zeros(
+            2 + 2 * sms * per_sm, dtype=torch.int32, device=dev))
+        out = torch.empty(2, dtype=torch.int32, device=dev)
+        err = kernel(words.data_ptr(), plan.head, plan.n_vec, plan.chunk,
+                     plan.grid, plan.tail, out.data_ptr(),
+                     scratch.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fingerprint_u32 kernel launch failed "
                            f"(cudaError {err})")

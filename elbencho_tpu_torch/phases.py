@@ -89,10 +89,11 @@ UNJOURNALED_PHASES = frozenset({
 })
 
 #: phases whose workers drive the device data path (H2D staging on reads,
-#: device-originated fills on writes, the transfer bench itself), each
-#: traced under --gpuprofile; metadata phases never touch the device
+#: device-originated fills on writes, the transfer bench itself, the
+#: slice phase's ingest and redistribution), each traced under
+#: --gpuprofile; metadata phases never touch the device
 GPU_PROFILE_PHASES = (BenchPhase.CREATEFILES, BenchPhase.READFILES,
-                      BenchPhase.TPUBENCH)
+                      BenchPhase.TPUBENCH, BenchPhase.TPUSLICE)
 
 
 # bucket-flavored names used in S3 mode (reference: MKBUCKETS/RMBUCKETS/...)

@@ -55,13 +55,13 @@ class PhaseResults:
         self.num_workers = 0
 
 
-def device_label(ctx) -> str:
+def device_label(device) -> str:
     """'cuda:0 (NVIDIA H100 80GB HBM3)' or 'cpu': every record names the
     device its device numbers come from."""
-    if ctx.device.type == "cuda":
+    if device.type == "cuda":
         import torch
-        return f"{ctx.device} ({torch.cuda.get_device_name(ctx.device)})"
-    return str(ctx.device)
+        return f"{device} ({torch.cuda.get_device_name(device)})"
+    return str(device)
 
 
 class Statistics:
@@ -96,7 +96,12 @@ class Statistics:
                 b, u = res.tpu_per_chip.get(chip, (0, 0))
                 res.tpu_per_chip[chip] = (b + w.gpu_transfer_bytes,
                                           u + w.gpu_transfer_usec)
-                label = device_label(w._gpu)
+            else:  # a --gpuslice feeder without a device context
+                for chip, (b2, u2) in w.gpu_per_chip.items():
+                    b, u = res.tpu_per_chip.get(chip, (0, 0))
+                    res.tpu_per_chip[chip] = (b + b2, u + u2)
+            devices = [w._gpu.device] if w._gpu is not None else []
+            for label in map(device_label, devices + w.slice_devices):
                 if label not in res.devices:
                     res.devices.append(label)
         res.tpu_path_counters = sum_path_audit_counters(workers)
@@ -168,6 +173,19 @@ class Statistics:
                 rows.append(self._row(
                     "", "Dev copy us/op", "-",
                     f"{res.tpu_usec / tpu_ops:,.1f}"))
+        counters = res.tpu_path_counters
+        if counters.get("IciRedistMiB"):
+            # the slice phase: shard ingest and the redistribution
+            stripes = max(res.final["entries"], 1)
+            rows.append(self._row("", "Shard ingest MiB", "-",
+                                  f"{counters['ShardIngestMiB']:,}"))
+            rows.append(self._row("", "Redist MiB", "-",
+                                  f"{counters['IciRedistMiB']:,}"))
+            rows.append(self._row(
+                "", "Redist us/stripe", "-",
+                f"{counters['IciRedistUSec'] / stripes:,.1f}"))
+            rows.append(self._row("", "Redist Gbit/s hwm", "-",
+                                  f"{counters['IciGbpsHwm']:,}"))
         for row in rows:
             print(row)
 

@@ -57,6 +57,24 @@ class Worker:
         self.gpu_transfer_usec = 0    # copy wall time (submit -> done)
         self.gpu_dispatch_usec = 0    # host-side submit cost (the overhead
                                       # --gpubudget bounds)
+        self._reset_slice_counters()
+
+    def _reset_slice_counters(self) -> None:
+        """--gpuslice counters (workers/gpuslice.py), owned by the worker
+        since the phase runs with or without a device context: shard
+        bytes this worker fed onto the mesh, the lead worker's redistributed
+        bytes, time and best single-stripe rate, and the per-device
+        ingest bytes of a feeder without a context (device index ->
+        (bytes, usec)), and those devices. The MiB counters mirror the
+        byte totals."""
+        self.shard_ingest_mib = 0
+        self.ici_redist_mib = 0
+        self.ici_redist_usec = 0
+        self.ici_gbps_hwm = 0
+        self._shard_ingest_bytes = 0
+        self._ici_redist_bytes = 0
+        self.gpu_per_chip: "dict[int, tuple[int, int]]" = {}
+        self.slice_devices: list = []  # the mesh devices this worker fed
 
     def reset_stats(self) -> None:
         self.is_interrupted = False
@@ -73,6 +91,7 @@ class Worker:
         self.gpu_transfer_bytes = 0
         self.gpu_transfer_usec = 0
         self.gpu_dispatch_usec = 0
+        self._reset_slice_counters()
 
     def create_stonewall_stats_if_triggered(self) -> None:
         """Snapshot current counters when the first worker finished
@@ -109,6 +128,12 @@ class Worker:
             return
         self._ops_since_check = 0
         self.create_stonewall_stats_if_triggered()
+        if self.is_interrupted or self.shared.interrupt_requested:
+            raise WorkerInterruptedException("worker interruption requested")
+
+    def check_interruption_flag_only(self) -> None:
+        """Interruption test without the stonewall snapshot or the op
+        count, for threads parked on the slice phase's barrier."""
         if self.is_interrupted or self.shared.interrupt_requested:
             raise WorkerInterruptedException("worker interruption requested")
 

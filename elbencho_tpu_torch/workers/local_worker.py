@@ -181,6 +181,9 @@ class LocalWorker(Worker):
         if phase == BenchPhase.TPUBENCH:
             from .gpubench import run_gpubench_phase
             run_gpubench_phase(self)
+        elif phase == BenchPhase.TPUSLICE:
+            from .gpuslice import run_gpu_slice_phase
+            run_gpu_slice_phase(self)
         elif phase in (BenchPhase.CREATEDIRS, BenchPhase.DELETEDIRS,
                        BenchPhase.STATDIRS):
             self._dir_mode_iterate_dirs(phase)

@@ -2,7 +2,8 @@
 
 Reference: elbencho_tpu/workers/manager.py (source/workers/
 WorkerManager.{h,cpp}), local workers only: prepareThreads() :143,
-startNextPhase() :292, waitForWorkersDone() :246 with fail-fast interrupt.
+startNextPhase() :292, waitForWorkersDone() :246 with fail-fast interrupt,
+and the slice phase's rank->shard map.
 """
 
 from __future__ import annotations
@@ -90,6 +91,21 @@ class WorkerManager:
             shared.cpu_util_last_done = shared.cpu_util.update()
             if shared.num_workers_done_with_error:
                 raise WorkerException(str(shared.first_error))
+
+    # -- slice rank->shard assignment (--gpuslice) --------------------------
+
+    @staticmethod
+    def slice_shard_assignment(n_devices: int, n_workers: int,
+                               local_rank: int) -> "list[int]":
+        """Mesh device indices fed by the worker at local_rank: devices
+        are dealt round-robin over this process's workers (device d ->
+        worker d % n_workers), so every device of the mesh has exactly
+        one feeder and the per-worker load differs by at most one shard.
+        The single authority for the slice phase's rank->shard map —
+        workers/gpuslice.py and the tests both read it from here."""
+        n_workers = max(n_workers, 1)
+        return [d for d in range(n_devices)
+                if d % n_workers == local_rank % n_workers]
 
     def interrupt_and_notify_workers(self) -> None:
         for worker in self.workers:

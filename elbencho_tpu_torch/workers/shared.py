@@ -40,6 +40,8 @@ class WorkersSharedData:
         self.cpu_util_stonewall: float = 0.0
         self.cpu_util_last_done: float = 0.0
         self.first_error: "Exception | None" = None
+        # (bench uuid, _SliceState) of the current --gpuslice phase
+        self.slice_state = None
 
     def start_phase(self, phase: BenchPhase) -> str:
         """Set the new phase + a fresh bench UUID and wake all workers

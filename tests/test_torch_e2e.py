@@ -65,8 +65,12 @@ def test_write_read_parity_with_the_jax_package(tmp_path, direct, stream):
     jax_recs = records(tmp_path / "jax.json")
     port_recs = records(tmp_path / "port.json")
     assert [r["Phase"] for r in port_recs] == ["WRITE", "READ"]
+    # the workload runs two workers (-t 2): the stonewall "First" counts
+    # are a snapshot of one worker's progress when the other finished,
+    # which depends on timing
+    keys = [k for k in COUNT_KEYS if not k.endswith("First")]
     for jr, pr in zip(jax_recs, port_recs, strict=True):
-        assert {k: pr[k] for k in COUNT_KEYS} == {k: jr[k] for k in COUNT_KEYS}
+        assert {k: pr[k] for k in keys} == {k: jr[k] for k in keys}
         assert pr["IOLatHisto"]["LatNumValues"] == \
             jr["IOLatHisto"]["LatNumValues"] == 8
         assert pr["Device"] == "cpu"

@@ -139,10 +139,8 @@ def jax_check_error(args, capsys):
 
 
 def as_port_text(jax_text):
-    """The JAX package's words with the port's flag and device names; the
-    port has no --gpuslice yet."""
-    return jax_text.replace("--tpu", "--gpu").replace("TPU", "GPU") \
-        .replace("/--gpuslice", "")
+    """The JAX package's words with the port's flag and device names."""
+    return jax_text.replace("--tpu", "--gpu").replace("TPU", "GPU")
 
 
 @pytest.mark.parametrize("args", [
@@ -164,14 +162,6 @@ def test_pipeline_flags_pass_under_gpubench(args):
     cfg, _ = parse_cli(args)
     cfg.derive()
     cfg.check()
-
-
-@pytest.mark.parametrize("pattern", ["ici", "allgather", "reducescatter",
-                                     "alltoall", "psum"])
-def test_collective_patterns_are_refused(pattern):
-    assert port_check_error(["--gpubench", "--gpubenchpat", pattern]) == (
-        f"--gpubenchpat {pattern} is a collective over several GPUs, which "
-        f"this port does not run yet (h2d|d2h|both)")
 
 
 def test_storage_phases_need_a_bench_path():

@@ -1,7 +1,7 @@
-"""The port stands alone: no module of elbencho_tpu_torch, and neither
-chip_smoke.py nor chip_profile_records.py, imports JAX or anything of the
-JAX package, or loads the JAX package's engine library
-(csrc/libioengine.so): the port builds its own from
+"""The port stands alone: no module of elbencho_tpu_torch, and none of
+chip_smoke.py, chip_multigpu.py and chip_profile_records.py, imports JAX
+or anything of the JAX package, or loads the JAX package's engine
+library (csrc/libioengine.so): the port builds its own from
 elbencho_tpu_torch/csrc/ioengine.cpp."""
 
 import ast
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "elbencho_tpu")
 
 def _port_sources():
     files = [os.path.join(REPO, name) for name in
-             ("chip_smoke.py", "chip_profile_records.py")]
+             ("chip_smoke.py", "chip_multigpu.py",
+              "chip_profile_records.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "elbencho_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -60,6 +61,11 @@ def test_importing_the_cli_loads_no_jax():
             "elbencho_tpu_torch.coordinator, elbencho_tpu_torch.utils.native, "
             "elbencho_tpu_torch.workers.local_worker, "
             "elbencho_tpu_torch.workers.gpubench, "
+            "elbencho_tpu_torch.workers.gpuslice, "
+            "elbencho_tpu_torch.workers.manager, "
+            "elbencho_tpu_torch.parallel.slice_phase, "
+            "elbencho_tpu_torch.parallel.mesh, "
+            "elbencho_tpu_torch.parallel.ingest, "
             "elbencho_tpu_torch.models.workloads, elbencho_tpu_torch.entry;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"
