@@ -34,6 +34,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "_smoke_data", "profile_records")
+# the CLI runs write only their traces, inside the checkout: no default
+# result files under /var/tmp
+os.environ["ELBENCHO_TPU_NO_DEFAULT_RESFILES"] = "1"
 VARIANTS = ("plain", "after-kernel-phase", "after-kernel-phase-no-warmup",
             "after-kernel-phase-no-warmup-acc")
 TRACED_READS = 10

@@ -100,7 +100,19 @@ without printing a result otherwise. In order it:
    kernel) at 1 MiB and 16 MiB: the scrambled block must equal numpy's
    xor, the (sum, xor) the plain version's and numpy's, one launch per
    call; its launches count in the kernel line;
-12. prints the kernel line {"kernels": [...]} and, last, the result line
+12. a phase's result output, after 10 and before 7, on the main path's
+   file at -t 2 -b 16M --iodepth 4 with --lat --lathisto --latpercent
+   --latpercent9s 3 --allelapsed --cpu, a --label holding a comma and
+   the three result files, all runs appending to one CSV: -r through the
+   fused ring and the Python loop, staged and --gpudirect, a --gpudirect
+   --gpuverify read of 1 GiB, --gpubench h2d -s 4g and --gpuslice -t 4;
+   checks the result file against the printed table, each CSV row's
+   fixed columns against its JSON record, the bytes each run was given,
+   one IO latency per op, the printed percentiles against the JSON
+   histogram, a CPU use above 0 where /proc/stat advances (0 where it is
+   frozen) and one kernel launch per verified block, and prints each run's p50, p99
+   and p99.9 latency, CPU use, rate and wall time;
+13. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -126,6 +138,9 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the CLI runs write only the result files they name, inside the checkout:
+# no default result files under /var/tmp
+os.environ["ELBENCHO_TPU_NO_DEFAULT_RESFILES"] = "1"
 MAIN_BLOCK = 16 << 20          # bytes per block on the main path (-b 16M)
 MAIN_SIZE = 4 << 30            # -s 4g
 MAIN_BLOCKS = MAIN_SIZE // MAIN_BLOCK
@@ -1452,6 +1467,171 @@ def runcontrol_pass(work: str) -> int:
     return total
 
 
+OUTPUT_FLAGS = ["--lat", "--lathisto", "--latpercent", "--latpercent9s", "3",
+                "--allelapsed", "--cpu"]
+OUTPUT_LABEL = "smoke, output"  # a comma: the CSV escapes it to ';'
+OUTPUT_VERIFY_SIZE = 1 << 30    # the --gpuverify read of the output pass
+
+
+def _proc_stat_moves() -> bool:
+    """Whether the host's /proc/stat "cpu" line advances over a 0.2 s
+    busy loop of this process."""
+    def read():
+        with open("/proc/stat") as f:
+            return f.readline()
+    before = read()
+    t0 = time.process_time()
+    while time.process_time() - t0 < 0.2:
+        pass
+    return read() != before
+
+
+def output_pass(work: str) -> int:
+    """A phase's result output at full width (-t 2 -b 16M --iodepth 4
+    --gpuids 0) with --lat --lathisto --latpercent --latpercent9s 3
+    --allelapsed --cpu and --resfile/--csvfile/--jsonfile, every run
+    appending to one CSV, on the main path's file: -r through the fused
+    ring and the Python loop, staged and --gpudirect; a --gpudirect
+    --gpuverify read of the file's first 1 GiB; --gpubench h2d at -s 4g;
+    --gpuslice -t 4. Each run must exit 0 and:
+
+    - write a result file whose lines are the printed table's, the rule
+      line excluded;
+    - append one CSV row per phase, under the one header of the port's
+      36 fixed columns, whose fixed columns equal the phase's JSON
+      record, ';' in place of the label's comma;
+    - read or copy the bytes it was given (BytesLast: 4 GiB, 1 GiB under
+      --gpuverify, 2 x 4 GiB for --gpubench, whose -s is per worker);
+    - book one IO latency per op (the histogram counts those bytes /
+      block values; the slice phase also one entry latency per stripe),
+      print the JSON histogram's percentiles in its 'IO lat
+      pcts' row, rising, with min <= avg <= max;
+    - show a CPU use above 0 over the whole phase ('CPU util %' last
+      done) where /proc/stat advances; where the host's /proc/stat is
+      frozen (some container runtimes report every counter as 0), the
+      meter has nothing to read and the row must be 0;
+    - launch the fingerprint kernel once per block under --gpuverify
+      (the slice phase once per stripe and once for its warm-up).
+
+    Prints each run's p50, p99 and p99.9 IO latency, CPU use and rate.
+    Returns the fingerprint launches."""
+    from elbencho_tpu_torch.stats.latency_histogram import LatencyHistogram
+    from elbencho_tpu_torch.stats.statistics import CSV_RESULT_COLUMNS
+    t_start = time.monotonic()
+    path = os.path.join(work, "smoke.bin")
+    csv_path = os.path.join(work, "output.csv")
+    res_path = os.path.join(work, "output.txt")
+    json_path = os.path.join(work, "output.json")
+    common = ["-b", "16M", "--iodepth", "4", "--gpuids", "0",
+              *OUTPUT_FLAGS, "--label", OUTPUT_LABEL, "--csvfile", csv_path,
+              "--resfile", res_path]
+    verify_blocks = OUTPUT_VERIFY_SIZE // MAIN_BLOCK
+    runs = (  # (name, arguments, phases, bytes, fingerprint launches)
+        ("-r, staged, fused ring", ["-r", "-t", "2", "--gpustream", "on",
+                                    path], ["READ"], MAIN_SIZE, 0),
+        ("-r, staged, Python loop", ["-r", "-t", "2", "--gpustream", "off",
+                                     path], ["READ"], MAIN_SIZE, 0),
+        ("-r --gpudirect, fused ring", ["-r", "-t", "2", "--gpudirect",
+                                        "--gpustream", "on", path],
+         ["READ"], MAIN_SIZE, 0),
+        ("-r --gpudirect, Python loop", ["-r", "-t", "2", "--gpudirect",
+                                         "--gpustream", "off", path],
+         ["READ"], MAIN_SIZE, 0),
+        ("-r --gpudirect --gpuverify, -s 1g",
+         ["-r", "-t", "2", "-s", f"{OUTPUT_VERIFY_SIZE >> 20}M",
+          "--gpudirect", "--verify", "7", "--gpuverify", path], ["READ"],
+         OUTPUT_VERIFY_SIZE, verify_blocks),
+        ("--gpubench h2d -s 4g", ["--gpubench", "--gpubenchpat", "h2d",
+                                  "-t", "2", "-s", f"{MAIN_SIZE >> 20}M"],
+         ["TPUBENCH"], 2 * MAIN_SIZE, 0),  # -s is per worker
+        ("--gpuslice -t 4", ["--gpuslice", "-t", "4", path], ["TPUSLICE"],
+         MAIN_SIZE, SLICE_STRIPES + 1),
+    )
+    proc_stat_moves = _proc_stat_moves()
+    print(f"  /proc/stat "
+          f"{'advances' if proc_stat_moves else 'does not advance'} over a "
+          f"0.2 s busy loop: CPU util must be "
+          f"{'above 0' if proc_stat_moves else '0 (nothing to read)'}")
+    total = 0
+    csv_rows = 0
+    for name, args, phases, want_bytes, want_launches in runs:
+        if os.path.exists(res_path):
+            os.unlink(res_path)
+        out = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(out):
+            recs, launches = run_pass(name, common + args, json_path, phases)
+        printed = [line for line in out.text.getvalue().splitlines()
+                   if line.startswith(("OPERATION", "    ")) or
+                   line[:12].rstrip() in phases]
+        with open(res_path) as f:
+            res_lines = f.read().splitlines()
+        if res_lines != [line for line in printed
+                         if not line.startswith("=====")]:
+            fail(f"pass '{name}': the result file is not the printed "
+                 f"table without its rule line:\n" + "\n".join(res_lines))
+        with open(csv_path) as f:
+            lines = f.read().splitlines()
+        header = lines[0].split(",")
+        if tuple(header[:len(CSV_RESULT_COLUMNS)]) != CSV_RESULT_COLUMNS \
+                or lines.count(lines[0]) != 1:
+            fail(f"pass '{name}': the CSV header is {lines[0][:200]}...")
+        new_rows = lines[1 + csv_rows:]
+        csv_rows += len(new_rows)
+        if len(new_rows) != len(recs):
+            fail(f"pass '{name}': {len(new_rows)} CSV rows for "
+                 f"{len(recs)} phases")
+        pcts_rows = [line for line in res_lines if "IO lat pcts :" in line]
+        for row, rec, pct_row in zip(new_rows, recs, pcts_rows,
+                                     strict=True):
+            values = dict(zip(header, row.split(","), strict=True))
+            for col in CSV_RESULT_COLUMNS:
+                if col in rec and values[col] != \
+                        str(rec[col]).replace(",", ";"):
+                    fail(f"pass '{name}': CSV column {col} is "
+                         f"{values[col]!r}, the JSON record "
+                         f"{rec[col]!r}")
+            if values["Label"] != OUTPUT_LABEL.replace(",", ";"):
+                fail(f"pass '{name}': CSV label {values['Label']!r}")
+            expect(name, rec, BytesLast=want_bytes,
+                   ops=want_bytes // MAIN_BLOCK)
+            if rec["Phase"] == "TPUSLICE":
+                expect(name, rec, EntriesLast=SLICE_STRIPES)
+                if rec["EntLatHisto"]["LatNumValues"] != SLICE_STRIPES:
+                    fail(f"pass '{name}': "
+                         f"{rec['EntLatHisto']['LatNumValues']} entry "
+                         f"latencies for {SLICE_STRIPES} stripes")
+            histo = LatencyHistogram.from_dict(rec["IOLatHisto"])
+            want = " ".join(f"{k}={v:.0f}" for k, v in
+                            histo.percentiles_nines(3).items())
+            if pct_row.split(":", 1)[1].strip() != want:
+                fail(f"pass '{name}': '{pct_row.strip()}' is not the JSON "
+                     f"histogram's {want}")
+            pct = histo.percentiles_nines(3)
+            if list(pct.values()) != sorted(pct.values()) or not \
+                    rec["IOLatUSecMin"] <= rec["IOLatUSecAvg"] \
+                    <= rec["IOLatUSecMax"]:
+                fail(f"pass '{name}': latencies out of order: {pct}, min "
+                     f"{rec['IOLatUSecMin']} avg {rec['IOLatUSecAvg']} max "
+                     f"{rec['IOLatUSecMax']}")
+            if (rec["CPUUtil"] > 0) != proc_stat_moves:
+                fail(f"pass '{name}': CPU util {rec['CPUUtil']} % over "
+                     f"{rec['ElapsedUSecLast']} us, where /proc/stat "
+                     f"{'advances' if proc_stat_moves else 'is frozen'}")
+            print(f"  {name}: {rec['Phase']} p50 {pct['p50']:.0f} us, p99 "
+                  f"{pct['p99']:.0f} us, p99.9 {pct['p99.9']:.0f} us "
+                  f"({histo.num_values} ops), CPU util "
+                  f"{rec['CPUUtilStoneWall']} % / {rec['CPUUtil']} % "
+                  f"(first / last done), {rec['MiBPerSecLast']} MiB/s, "
+                  f"device {rec['TpuHbmMiBPerSec']} MiB/s")
+        if launches != want_launches:
+            fail(f"pass '{name}': {launches} fingerprint launches, want "
+                 f"{want_launches}")
+        total += launches
+    print(f"output pass: {time.monotonic() - t_start:.1f} s, {csv_rows} "
+          f"CSV rows, {total} fingerprint launches")
+    return total
+
+
 def signal_children(work: str) -> int:
     """The two-stage SIGINT in child processes of the CLI on the card.
     Returns the first child's fingerprint launches."""
@@ -1624,6 +1804,7 @@ def main() -> int:
         slice_runner_pass(dev)
         collective_pass(work, dev)
         launches += runcontrol_pass(work)
+        launches += output_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

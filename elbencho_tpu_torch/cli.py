@@ -21,6 +21,10 @@ source/Main.cpp:14-69): parse args, validate, run the local coordinator.
         --infloop --timelimit 60 /path/file
     python -m elbencho_tpu_torch -w -r -i 2 --phasedelay 5 --label run1 \\
         -b 16M --gpuids 0 /path/file
+    # result output: latency rows, CPU use, and the three result files
+    python -m elbencho_tpu_torch -r -t 2 -b 16M --iodepth 4 --gpuids 0 \\
+        --lat --latpercent --lathisto --allelapsed --cpu \\
+        --resfile res.txt --csvfile res.csv --jsonfile res.json /path/file
 """
 
 from __future__ import annotations
@@ -73,6 +77,13 @@ def main(argv: "list[str] | None" = None,
     except (ConfigError, OSError) as err:
         print(f"ERROR: {err}", file=sys.stderr)
         return 1
+    if cfg.csv_file_path:
+        from .stats.statistics import Statistics
+        try:  # fail before any phase runs, like the reference
+            Statistics.check_csv_file_compatibility(cfg)
+        except (ValueError, OSError) as err:
+            print(f"ERROR: {err}", file=sys.stderr)
+            return 1
     if cfg.do_dry_run:
         _print_dry_run(cfg)
         return 0

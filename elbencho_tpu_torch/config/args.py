@@ -15,9 +15,13 @@ STATDIRS, WRITE, STAT, READ, RMFILES and RMDIRS phases, and the
 patterns), which needs no bench path, and the ``--gpuslice`` phase
 (TPUSLICE: striped shard ingest over a device mesh and redistribution),
 under the run control flags (``-i``, ``--timelimit``, ``--infloop``,
-``--phasedelay``, ``--label``, ``--dryrun``, ``-c``). Custom trees, the
-other storage back ends and the remaining flags are later slices
-(ROADMAP.md queue A).
+``--phasedelay``, ``--label``, ``--dryrun``, ``-c``) and the result
+output flags (``--lat``, ``--lathisto``, ``--latpercent``,
+``--latpercent9s``, ``--allelapsed``, ``--cpu``, ``--base10``,
+``--no0usecerr``, ``--resfile``, ``--csvfile``, ``--jsonfile``,
+``--nocsvlabels`` and the default result files). Live statistics, custom
+trees, the other storage back ends and the remaining flags are later
+slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -72,8 +76,31 @@ FLAG_DEFS = [
      "All threads share the same dirs (d0..dN) instead of per-rank dirs"),
     ("verify", None, "integrity_check_salt", "int", 0,
      "Enable data integrity check with given salt (!=0)"),
+    ("no0usecerr", None, "ignore_0usec_errors", "bool", False,
+     "Do not warn about operations completing in 0 microseconds"),
+    # result output at the end of each phase
+    ("lat", None, "show_latency", "bool", False,
+     "Show min/avg/max latency"),
+    ("lathisto", None, "show_latency_histogram", "bool", False,
+     "Show latency histogram"),
+    ("latpercent", None, "show_latency_percentiles", "bool", False,
+     "Show latency percentiles"),
+    ("latpercent9s", None, "num_latency_percentile_9s", "int", 2,
+     "Number of nines for top latency percentile (2=99, 3=99.9, ...)"),
+    ("allelapsed", None, "show_all_elapsed", "bool", False,
+     "Show elapsed time of every single worker thread"),
+    ("cpu", None, "show_cpu_util", "bool", False,
+     "Show CPU utilization in live stats and results"),
+    ("resfile", None, "res_file_path", "str", "",
+     "Also write human-readable results to this file"),
+    ("csvfile", None, "csv_file_path", "str", "",
+     "Also write results to this CSV file"),
     ("jsonfile", None, "json_file_path", "str", "",
      "Also write results to this JSON file"),
+    ("nocsvlabels", None, "no_csv_labels", "bool", False,
+     "Do not print config labels line to CSV file"),
+    ("base10", None, "use_base10_units", "bool", False,
+     "Use base-10 (MB/s) instead of base-2 (MiB/s) units in output"),
     ("nolive", None, "disable_live_stats", "bool", False,
      "Disable live statistics (accepted for command-line compatibility; "
      "this port prints no live statistics)"),
@@ -186,6 +213,9 @@ class BenchConfig(BenchConfigBase):
         # cuda:<gpu id>; "cpu" is for callers that ask for the CPU
         # explicitly (the tests). Deliberately no flag.
         self.device: "str | None" = None
+        # set by _apply_default_result_files: the CSV path was not given,
+        # so a file of another column count is rotated, not refused
+        self._defaulted_csv = False
 
     # -- derivation ---------------------------------------------------------
 
@@ -214,7 +244,56 @@ class BenchConfig(BenchConfigBase):
                 self.random_amount = self.file_size * max(1, len(self.paths))
             else:
                 self.random_amount = self.file_size
+        self._apply_default_result_files()
         return self
+
+    @staticmethod
+    def _default_results_base() -> str:
+        """Base dir for default result files (separate hook for tests)."""
+        return "/var/tmp"
+
+    def _apply_default_result_files(self) -> None:
+        """Runs default result files into
+        /var/tmp/elbencho-tpu_results_<user>/ with date-stamped names
+        (reference: RESFILE_DIR_USER_DEFAULT, ProgArgs.cpp:71,1174-1187),
+        the same directory and names as the JAX package. Disable with
+        ELBENCHO_TPU_NO_DEFAULT_RESFILES=1 (CI, test runs)."""
+        if os.environ.get("ELBENCHO_TPU_NO_DEFAULT_RESFILES") == "1":
+            return
+        if self.res_file_path and self.csv_file_path \
+                and self.json_file_path:
+            return
+        import datetime
+        import getpass
+        try:
+            user = getpass.getuser()
+        except (KeyError, OSError):
+            user = f"uid{os.getuid()}"
+        res_dir = os.path.join(self._default_results_base(),
+                               f"elbencho-tpu_results_{user}")
+        try:
+            os.makedirs(res_dir, mode=0o700, exist_ok=True)
+            # /var/tmp is world-writable and the dir name predictable: only
+            # trust a real directory owned by us (no attacker symlink/dir)
+            st = os.lstat(res_dir)
+            if not stat_mod.S_ISDIR(st.st_mode) or st.st_uid != os.getuid():
+                return
+        except OSError:
+            return  # read-only /var/tmp: keep explicit-only result files
+        date = datetime.date.today().strftime("%Y%m%d")
+        if not self.res_file_path:
+            self.res_file_path = \
+                f"{res_dir}/elbencho-tpu_results_{date}.txt"
+        if not self.csv_file_path:
+            self.csv_file_path = \
+                f"{res_dir}/elbencho-tpu_results_{date}.csv"
+            # an implicit file may be rotated on column-count mismatch
+            # (a JAX-package run or another flag set must not fail runs
+            # that never asked for CSV output; explicit --csvfile errors)
+            self._defaulted_csv = True
+        if not self.json_file_path:
+            self.json_file_path = \
+                f"{res_dir}/elbencho-tpu_results_{date}.json"
 
     def _find_bench_path_type(self) -> None:
         """DIR|FILE|BLOCKDEV via stat; all paths must agree (reference:

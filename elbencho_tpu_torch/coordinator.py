@@ -4,8 +4,8 @@ Reference: elbencho_tpu/coordinator.py (source/Coordinator.{h,cpp}),
 local role only: prepare the workers, run --iterations times the ordered
 phases (runBenchmarks :299) with --phasedelay between them, each bracketed
 by a --gpuprofile trace where it touches the device and timed for
---timelimit, print each phase's results, tear down. SIGINT and SIGTERM
-shut down in two stages (:940-978).
+--timelimit, print and write each phase's results, tear down. SIGINT and
+SIGTERM shut down in two stages (:940-978).
 """
 
 from __future__ import annotations
@@ -44,6 +44,11 @@ class Coordinator:
             return 0
         except WorkerException as err:
             logger.log_error(f"Aborting due to worker error: {err}")
+            self.manager.interrupt_and_notify_workers()
+            return 1
+        except OSError as err:
+            # e.g. a result file that cannot be written: the run fails
+            logger.log_error(f"Aborting: {err}")
             self.manager.interrupt_and_notify_workers()
             return 1
         except KeyboardInterrupt:

@@ -110,7 +110,7 @@ class WorkerManager:
                 self.check_phase_time_limit(phase_start)
                 self.check_fail_fast_interrupt()
                 shared.cond.wait(WAIT_WAKEUP_SECS)
-            shared.cpu_util_last_done = shared.cpu_util.update()
+            shared.cpu_util_last_done = shared.cpu_util_last_meter.update()
             if shared.num_workers_done_with_error:
                 raise WorkerException(str(shared.first_error))
 

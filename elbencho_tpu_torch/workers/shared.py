@@ -42,7 +42,11 @@ class WorkersSharedData:
         # delete phases then tolerate missing entries (a partial dataset
         # is expected after an aborted write)
         self.partial_dataset = False
-        self.cpu_util = CPUUtil()
+        # two meters, both baselined at the phase start, as upstream's
+        # cpuUtilFirstDone/cpuUtilLastDone: one meter read again at the
+        # last done would cover only the time since the first done
+        self.cpu_util_first_meter = CPUUtil()
+        self.cpu_util_last_meter = CPUUtil()
         self.cpu_util_stonewall: float = 0.0
         self.cpu_util_last_done: float = 0.0
         self.first_error: "Exception | None" = None
@@ -68,7 +72,8 @@ class WorkersSharedData:
             self.stonewall_triggered = False
             self.phase_time_expired = False
             self.phase_start_monotonic = time.monotonic()
-            self.cpu_util.update()  # baseline for phase CPU util
+            self.cpu_util_first_meter.update()  # baselines for the phase
+            self.cpu_util_last_meter.update()
             self.cond.notify_all()
             return self.bench_uuid
 
@@ -92,7 +97,7 @@ class WorkersSharedData:
             self.num_workers_done += 1
             if not self.stonewall_triggered:
                 self.stonewall_triggered = True
-                self.cpu_util_stonewall = self.cpu_util.update()
+                self.cpu_util_stonewall = self.cpu_util_first_meter.update()
             self.cond.notify_all()
 
     def inc_num_workers_done_with_error(self, err: Exception) -> None:
