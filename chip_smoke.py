@@ -112,7 +112,24 @@ without printing a result otherwise. In order it:
    histogram, a CPU use above 0 where /proc/stat advances (0 where it is
    frozen) and one kernel launch per verified block, and prints each run's p50, p99
    and p99.9 latency, CPU use, rate and wall time;
-13. prints the kernel line {"kernels": [...]} and, last, the result line
+13. live statistics, after 12 and before 7, on the main path's file at
+   -t 2 -b 16M --iodepth 4 with --liveint 250 --live1n --cpu, the live
+   CSV and JSON (--livejsonex) and a --label holding a comma, the console
+   captured: -r --infloop --timelimit 4, staged through the fused ring,
+   --gpudirect through the ring and the Python loop, and the --gpudirect
+   ring again with --nolive; a --gpudirect --gpuverify read of 1 GiB;
+   --gpubench h2d -s 4g; --gpuslice -t 4; checks that the CSV, the JSON
+   and the console hold equally many rows (none on the console under
+   --nolive), one per 250 ms of the phase within one, that Seconds and
+   Bytes never go back and the last row's Bytes is at most the record's,
+   that each row's per-worker counters add up to its totals, that the
+   4 s reads' Bytes advance in at least 3 rows, the time limit's
+   overrun, the live CPU column (above 0 where /proc/stat advances, 0
+   where it is frozen), one kernel launch per verified block, one CSV
+   header and 7 columns a row; prints each run's rows, the least and
+   most rate between two rows and the phase's MiB/s beside the --nolive
+   twin's;
+14. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -462,11 +479,15 @@ def check_registered_slot(dev) -> None:
         pool.close()
 
 
-def run_cli(args: "list[str]", json_path: str) -> "tuple[int, list[dict]]":
+def run_cli(args: "list[str]", json_path: str,
+            live: bool = False) -> "tuple[int, list[dict]]":
+    """One in-process CLI run; its console live statistics are off unless
+    `live`."""
     from elbencho_tpu_torch.cli import main as cli_main
     if os.path.exists(json_path):
         os.unlink(json_path)
-    rc = cli_main(args + ["--nolive", "--jsonfile", json_path])
+    rc = cli_main(args + ([] if live else ["--nolive"])
+                  + ["--jsonfile", json_path])
     recs = []
     if os.path.exists(json_path):
         with open(json_path) as f:
@@ -631,14 +652,15 @@ def device_ops(rec: dict) -> int:
 
 
 def run_pass(name: str, args: "list[str]", json_path: str,
-             want_phases: "list[str]") -> "tuple[list[dict], int]":
+             want_phases: "list[str]",
+             live: bool = False) -> "tuple[list[dict], int]":
     """One CLI run with the kernel's launch count zeroed just before it and
     read just after it; fails unless it exits 0 with `want_phases` on a
     CUDA device. Returns (records, fingerprint launches)."""
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
     fingerprint_u32.launches.reset()
     t0 = time.monotonic()
-    rc, recs = run_cli(args, json_path)
+    rc, recs = run_cli(args, json_path, live)
     secs = time.monotonic() - t0
     launches = fingerprint_u32.launches.count
     if rc != 0:
@@ -1632,6 +1654,177 @@ def output_pass(work: str) -> int:
     return total
 
 
+LIVE_INT_MS = 250               # --liveint of the live pass
+LIVE_LIMIT_S = 4                # --timelimit of its looped reads
+LIVE_LABEL = "live,1"           # a comma: the live CSV escapes it to ';'
+LIVE_CSV_HEADER = "ISODate,Label,Phase,Seconds,Entries,Bytes,IOPS"
+RING_CHUNK = 256 << 20          # bytes a worker's ring books at once
+
+
+def live_pass(work: str) -> int:
+    """Live statistics at full width (-t 2 -b 16M --iodepth 4 --gpuids 0)
+    with --liveint 250 --live1n --cpu --livecsv --livejson --livejsonex
+    and a --label holding a comma, the console captured: -r --infloop
+    --timelimit 4 of the main path's file, staged through the fused ring,
+    --gpudirect through the ring and the Python loop, then the --gpudirect
+    ring again with --nolive; a --gpudirect --gpuverify read of the
+    file's first 1 GiB; --gpubench h2d -s 4g; --gpuslice -t 4. For each
+    phase:
+
+    - the CSV, the JSON and the console hold equally many rows (none on
+      the console under --nolive), within 1 of the phase's elapsed time
+      in whole --liveint;
+    - Seconds and Bytes never decrease, each JSON row's Workers add up
+      to its totals, and the last row's Bytes is at most BytesLast;
+    - in each 4 s read at least 3 rows show Bytes advancing: the ring
+      books while it runs, not only at its end;
+    - the limit is overrun by at most RUN_SLACK_S, the kernel launched
+      once per verified block (the slice once per stripe and its warm-up);
+    - every console row's CPU column is above 0 where /proc/stat advances
+      and 0 where it is frozen;
+    - the CSV holds one header, and every row its 7 columns, the label's
+      comma written as ';'.
+
+    Prints each run's rows, the least and most rate between two rows (and
+    in steps of the ring's 256 MiB chunk a worker), and the phase's MiB/s
+    (the --gpudirect ring's beside its --nolive twin's). Returns the
+    fingerprint launches."""
+    t_start = time.monotonic()
+    path = os.path.join(work, "smoke.bin")
+    csv_path = os.path.join(work, "live.csv")
+    live_json = os.path.join(work, "live.json")
+    json_path = os.path.join(work, "live_results.json")
+    common = ["-b", "16M", "--iodepth", "4", "--gpuids", "0", "--liveint",
+              str(LIVE_INT_MS), "--live1n", "--cpu", "--livecsv", csv_path,
+              "--livejson", live_json, "--livejsonex", "--label",
+              LIVE_LABEL]
+    looped = ["-r", "-t", "2", "--infloop", "--timelimit",
+              str(LIVE_LIMIT_S)]
+    verify_blocks = OUTPUT_VERIFY_SIZE // MAIN_BLOCK
+    runs = (  # (name, arguments, phase, console rows, fingerprint launches)
+        ("staged, fused ring", [*looped, "--gpustream", "on", path],
+         "READ", True, 0),
+        ("--gpudirect, fused ring", [*looped, "--gpudirect", "--gpustream",
+                                     "on", path], "READ", True, 0),
+        ("--gpudirect, Python loop", [*looped, "--gpudirect", "--gpustream",
+                                      "off", path], "READ", True, 0),
+        ("--gpudirect, fused ring, --nolive",
+         [*looped, "--gpudirect", "--gpustream", "on", "--nolive", path],
+         "READ", False, 0),
+        ("--gpudirect --gpuverify, -s 1g",
+         ["-r", "-t", "2", "-s", f"{OUTPUT_VERIFY_SIZE >> 20}M",
+          "--gpudirect", "--verify", "7", "--gpuverify", path], "READ",
+         True, verify_blocks),
+        ("--gpubench h2d -s 4g", ["--gpubench", "--gpubenchpat", "h2d",
+                                  "-t", "2", "-s", f"{MAIN_SIZE >> 20}M"],
+         "TPUBENCH", True, 0),
+        ("--gpuslice -t 4", ["--gpuslice", "-t", "4", path], "TPUSLICE",
+         True, SLICE_STRIPES + 1),
+    )
+    proc_stat_moves = _proc_stat_moves()
+    print(f"  /proc/stat "
+          f"{'advances' if proc_stat_moves else 'does not advance'}: the "
+          f"live CPU column must be "
+          f"{'above 0' if proc_stat_moves else '0'}")
+    total = 0
+    rates = {}
+    for name, args, phase, console, want_launches in runs:
+        for p in (csv_path, live_json):
+            if os.path.exists(p):
+                os.unlink(p)
+        out = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(out):
+            (rec,), launches = run_pass(f"live: {name}", common + args,
+                                        json_path, [phase], live=True)
+        lines = [line for line in out.text.getvalue().splitlines()
+                 if line.startswith(f"{phase}: ")]
+        # a phase shorter than --liveint writes no row, so no file
+        csv_lines, rows = [LIVE_CSV_HEADER], []
+        if os.path.exists(csv_path):
+            with open(csv_path) as f:
+                csv_lines = f.read().splitlines()
+        if os.path.exists(live_json):
+            with open(live_json) as f:
+                rows = [json.loads(line) for line in f]
+        n = len(rows)
+        whole = rec["ElapsedUSecLast"] // (LIVE_INT_MS * 1000)
+        if csv_lines.count(LIVE_CSV_HEADER) != 1 \
+                or csv_lines[0] != LIVE_CSV_HEADER:
+            fail(f"live pass '{name}': the live CSV does not start with its "
+                 f"one header: {csv_lines[:2]}")
+        if len(csv_lines) - 1 != n or len(lines) != (n if console else 0):
+            fail(f"live pass '{name}': {len(csv_lines) - 1} CSV rows, {n} "
+                 f"JSON rows, {len(lines)} console rows")
+        if abs(n - whole) > 1:
+            fail(f"live pass '{name}': {n} rows in {rec['ElapsedUSecLast']} "
+                 f"us ({whole} whole intervals of {LIVE_INT_MS} ms)")
+        for line, row in zip(csv_lines[1:], rows, strict=True):
+            cols = line.split(",")
+            if len(cols) != 7 or cols[1] != LIVE_LABEL.replace(",", ";") \
+                    or cols[2:] != [row["Phase"], str(row["Seconds"]),
+                                    str(row["Entries"]), str(row["Bytes"]),
+                                    str(row["IOPS"])]:
+                fail(f"live pass '{name}': CSV row {line!r} against JSON "
+                     f"row {row}")
+            if row["Label"] != LIVE_LABEL or row["Phase"] != phase:
+                fail(f"live pass '{name}': JSON row {row}")
+            for key, per_worker in (("Entries", "NumEntriesDone"),
+                                    ("Bytes", "NumBytesDone"),
+                                    ("IOPS", "NumIOPSDone")):
+                if sum(w[per_worker] for w in row["Workers"]) != row[key]:
+                    fail(f"live pass '{name}': the Workers of {row} do not "
+                         f"add up to its {key}")
+        for key in ("Seconds", "Bytes"):
+            values = [row[key] for row in rows]
+            if values != sorted(values):
+                fail(f"live pass '{name}': {key} goes back: {values}")
+        if rows and rows[-1]["Bytes"] > rec["BytesLast"]:
+            fail(f"live pass '{name}': the last row's {rows[-1]['Bytes']} "
+                 f"bytes exceed BytesLast {rec['BytesLast']}")
+        steps = [b - a for a, b in zip([0] + [r["Bytes"] for r in rows],
+                                       [r["Bytes"] for r in rows])]
+        overrun = ""
+        if "--infloop" in args:
+            advancing = sum(1 for step in steps if step > 0)
+            slack = rec["ElapsedUSecLast"] / 1e6 - LIVE_LIMIT_S
+            overrun = f" (limit + {slack:.3f} s)"
+            if advancing < 3:
+                fail(f"live pass '{name}': Bytes advanced in {advancing} of "
+                     f"{n} rows")
+            if not 0 <= slack <= RUN_SLACK_S:
+                fail(f"live pass '{name}': ended {slack:.3f} s after its "
+                     f"limit")
+        cpus = [float(line.rsplit("; CPU ", 1)[1].rstrip("%"))
+                for line in lines]
+        if any((cpu > 0) != proc_stat_moves for cpu in cpus):
+            fail(f"live pass '{name}': live CPU column {cpus}, where "
+                 f"/proc/stat {'advances' if proc_stat_moves else 'is frozen'}")
+        if launches != want_launches:
+            fail(f"live pass '{name}': {launches} fingerprint launches, want "
+                 f"{want_launches}")
+        total += launches
+        between = steps[1:]
+        per_s = 2 ** 20 * LIVE_INT_MS / 1000
+        spread = (f"{min(between) / per_s:,.1f}-{max(between) / per_s:,.1f} "
+                  f"MiB/s ({min(between) / RING_CHUNK:.2f}-"
+                  f"{max(between) / RING_CHUNK:.2f} chunks of 256 MiB)"
+                  if between else "n/a (fewer than 2 rows)")
+        rates[name] = rec["MiBPerSecLast"]
+        print(f"  live {name}: {phase} {n} rows in "
+              f"{rec['ElapsedUSecLast']} us{overrun} ({whole} whole "
+              f"intervals), rate between two rows {spread}, "
+              f"{sum(1 for step in steps if step > 0)} rows advancing, "
+              f"phase {rec['MiBPerSecLast']} MiB/s"
+              + (f" (--nolive twin "
+                 f"{rates.get('--gpudirect, fused ring, --nolive')} MiB/s "
+                 f"beside {rates.get('--gpudirect, fused ring')} with live "
+                 f"on)" if name.endswith("--nolive") else "")
+              + f", {launches} launches")
+    print(f"live pass: {time.monotonic() - t_start:.1f} s, {total} "
+          f"fingerprint launches")
+    return total
+
+
 def signal_children(work: str) -> int:
     """The two-stage SIGINT in child processes of the CLI on the card.
     Returns the first child's fingerprint launches."""
@@ -1805,6 +1998,7 @@ def main() -> int:
         collective_pass(work, dev)
         launches += runcontrol_pass(work)
         launches += output_pass(work)
+        launches += live_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

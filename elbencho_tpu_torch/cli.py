@@ -25,6 +25,11 @@ source/Main.cpp:14-69): parse args, validate, run the local coordinator.
     python -m elbencho_tpu_torch -r -t 2 -b 16M --iodepth 4 --gpuids 0 \\
         --lat --latpercent --lathisto --allelapsed --cpu \\
         --resfile res.txt --csvfile res.csv --jsonfile res.json /path/file
+    # live statistics: a line every 500 ms (fullscreen per-worker view on
+    # a terminal without --live1/--live1n), and the live CSV and JSON
+    python -m elbencho_tpu_torch -r -t 2 -b 16M --iodepth 4 --gpuids 0 \\
+        --infloop --timelimit 60 --liveint 500 --live1n --cpu \\
+        --livecsv live.csv --livejson live.json --livejsonex /path/file
 """
 
 from __future__ import annotations

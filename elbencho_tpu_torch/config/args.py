@@ -19,9 +19,11 @@ under the run control flags (``-i``, ``--timelimit``, ``--infloop``,
 output flags (``--lat``, ``--lathisto``, ``--latpercent``,
 ``--latpercent9s``, ``--allelapsed``, ``--cpu``, ``--base10``,
 ``--no0usecerr``, ``--resfile``, ``--csvfile``, ``--jsonfile``,
-``--nocsvlabels`` and the default result files). Live statistics, custom
-trees, the other storage back ends and the remaining flags are later
-slices (ROADMAP.md queue A).
+``--nocsvlabels`` and the default result files) and the live statistics
+flags (``--nolive``, ``--liveint``, ``--live1``, ``--live1n``,
+``--livecsv``, ``--livejson``, ``--livecsvex``, ``--livejsonex``).
+Custom trees, the other storage back ends and the remaining flags are
+later slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -101,9 +103,24 @@ FLAG_DEFS = [
      "Do not print config labels line to CSV file"),
     ("base10", None, "use_base10_units", "bool", False,
      "Use base-10 (MB/s) instead of base-2 (MiB/s) units in output"),
+    # live statistics during each phase
+    ("livecsv", None, "live_csv_file_path", "str", "",
+     "Write live stats to this CSV file ('stdout' allowed)"),
+    ("livejson", None, "live_json_file_path", "str", "",
+     "Write live stats to this JSON file ('stdout' allowed)"),
+    ("livecsvex", None, "live_csv_extended", "bool", False,
+     "Live CSV: one row per worker instead of totals"),
+    ("livejsonex", None, "live_json_extended", "bool", False,
+     "Live JSON: one entry per worker instead of totals"),
+    ("liveint", None, "live_stats_interval_ms", "int", 2000,
+     "Live statistics refresh interval in milliseconds"),
+    ("live1", None, "use_single_line_live_stats", "bool", False,
+     "Single-line live stats instead of fullscreen"),
+    ("live1n", None, "single_line_live_stats_no_erase", "bool", False,
+     "Single-line live stats, new line per update (for logs/pipes)"),
     ("nolive", None, "disable_live_stats", "bool", False,
-     "Disable live statistics (accepted for command-line compatibility; "
-     "this port prints no live statistics)"),
+     "Disable live statistics on the console (the --livecsv and "
+     "--livejson files are still written)"),
     # GPU data path (upstream elbencho's --gpuids; the --gpu* flags are the
     # counterparts of the JAX package's --tpu* flags)
     ("gpuids", None, "gpu_ids_str", "str", "",

@@ -4,8 +4,9 @@ Reference: elbencho_tpu/coordinator.py (source/Coordinator.{h,cpp}),
 local role only: prepare the workers, run --iterations times the ordered
 phases (runBenchmarks :299) with --phasedelay between them, each bracketed
 by a --gpuprofile trace where it touches the device and timed for
---timelimit, print and write each phase's results, tear down. SIGINT and
-SIGTERM shut down in two stages (:940-978).
+--timelimit, show its live statistics while it runs, print and write its
+results, tear down. SIGINT and SIGTERM shut down in two stages
+(:940-978).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ class Coordinator:
         except WorkerException as err:
             logger.log_error(f"Aborting due to worker error: {err}")
             self.manager.interrupt_and_notify_workers()
+            self.statistics.abort_cleanup()
             return 1
         except OSError as err:
             # e.g. a result file that cannot be written: the run fails
@@ -55,8 +57,10 @@ class Coordinator:
             logger.log_error("Interrupted. Shutting down workers...")
             self.manager.shared.request_interrupt()
             self.manager.interrupt_and_notify_workers()
+            self.statistics.abort_cleanup()
             return 3
         finally:
+            self.statistics.close()  # the terminal leaves cbreak mode
             # the workers drain their device copies and storage rings
             # before their buffers are unregistered and freed
             self.manager.join_all_threads()
@@ -79,14 +83,15 @@ class Coordinator:
                     time.sleep(cfg.next_phase_delay_secs)
 
     def run_benchmark_phase(self, phase: BenchPhase) -> None:
-        """Start phase -> wait done (the time limit counts from here) ->
-        print results (reference: runBenchmarkPhase, Coordinator.cpp:249).
-        After a signal the interrupted phase's results are printed, then
-        the run aborts."""
+        """Start phase -> live stats -> wait done (the time limit counts
+        from the start) -> print results (reference: runBenchmarkPhase,
+        Coordinator.cpp:249). After a signal the interrupted phase's
+        results are printed, then the run aborts."""
         phase_start = time.monotonic()
         profiler = self._start_gpu_profile(phase)
         try:
             self.manager.start_next_phase(phase)
+            self.statistics.live_stats_loop(phase, phase_start)
             self.manager.wait_for_workers_done(phase_start)
         finally:
             if profiler is not None:

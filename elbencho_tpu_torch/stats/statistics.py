@@ -1,11 +1,13 @@
-"""Statistics: first-done/last-done phase results and their output.
+"""Statistics: live statistics during a phase, and the first-done/
+last-done phase results and their output.
 
 Reference: elbencho_tpu/stats/statistics.py (source/Statistics.{h,cpp}),
-cut to what a phase prints or writes when it ends: the result table
-(with the latency, CPU and worker-elapsed rows and the 0 us warning),
-the --resfile copy of it, the --csvfile row and the --jsonfile record,
-with the device keys and the path-audit counters. Live statistics are
-not ported.
+local runs only. During a phase: the live loop (the single console line,
+the fullscreen per-worker view with its keys and its latency footer, the
+--livecsv/--livejson streams). When it ends: the result table (with the
+latency, CPU and worker-elapsed rows and the 0 us warning), the
+--resfile copy of it, the --csvfile row and the --jsonfile record, with
+the device keys and the path-audit counters.
 
 JSON keys and CSV columns keep the JAX package's names, so records of
 both packages compare key by key and the tools (elbencho-tpu-chart,
@@ -17,12 +19,29 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 from ..cuda.device import (PATH_AUDIT_COUNTERS, PATH_AUDIT_WORKER_COUNTERS,
                            sum_path_audit_counters)
 from ..phases import BenchPhase, phase_entry_type, phase_name
+from ..workers.manager import WAIT_WAKEUP_SECS
+from .cpu_util import CPUUtil
 from .latency_histogram import LatencyHistogram
+
+#: the shortest --liveint the loop renders at
+LIVE_MIN_INTERVAL_MS = 50
+
+
+def merge_live_latency_histos(workers) -> "tuple[LatencyHistogram, ...]":
+    """(io, entries) histograms merged over a worker list for the
+    fullscreen view's latency footer."""
+    io_histo = LatencyHistogram()
+    ent_histo = LatencyHistogram()
+    for w in workers:
+        io_histo.merge(w.iops_latency_histo)
+        ent_histo.merge(w.entries_latency_histo)
+    return io_histo, ent_histo
 
 
 def _fmt_elapsed_usec(usec: int) -> str:
@@ -96,6 +115,332 @@ class Statistics:
     def __init__(self, cfg, worker_manager):
         self.cfg = cfg
         self.manager = worker_manager
+        self._live_csv_fh = None
+        self._live_json_fh = None
+        self._live_rows = 0      # data rows written to the live streams
+        self._live_started = 0.0
+        self._fullscreen_active = False
+        self._fs_scroll = 0
+        self._fs_old_termios = None
+        # the live --cpu column's own meter: the JAX package reads the
+        # phase's meter there, so each render moved the first- and
+        # last-done baselines and CPU util % covered only the time since
+        # the last render
+        self._live_cpu = CPUUtil()
+
+    # ------------------------------------------------------------------
+    # live statistics (reference: printLiveStats, Statistics.cpp:1337)
+    # ------------------------------------------------------------------
+
+    def _sum_live_ops(self) -> "tuple[int, int, int, int, list]":
+        """(entries, bytes, iops, workers done, [(rank, LiveOps)]) from one
+        snapshot of each worker's counters, so that a row's per-worker
+        counters add up to its totals. The JAX package reads the running
+        counters again for the per-worker part of a --livejsonex row, and
+        a worker that booked an op in between made them disagree."""
+        per_worker = [(w.rank, w.live_ops.snapshot())
+                      for w in self.manager.workers]
+        entries = sum(ops.num_entries_done for _rank, ops in per_worker)
+        num_bytes = sum(ops.num_bytes_done for _rank, ops in per_worker)
+        iops = sum(ops.num_iops_done for _rank, ops in per_worker)
+        done = self.manager.shared.num_workers_done \
+            + self.manager.shared.num_workers_done_with_error
+        return entries, num_bytes, iops, done, per_worker
+
+    def live_stats_loop(self, phase: BenchPhase, phase_start: float) -> None:
+        """Poll the workers' counters until the phase completes, checking
+        --timelimit and a worker's error on every poll, and render every
+        --liveint: the console line or the fullscreen view (unless
+        --nolive) and the live files. Runs on the coordinator thread.
+
+        Renders fall on a fixed grid of --liveint from the loop's start
+        (a slot missed behind a long poll is skipped), so a phase gets one
+        row per --liveint of its length. The JAX package counts each
+        interval from the poll that rendered the last row: its rows come
+        late by up to a poll each and the delay adds up (a 4 s phase at
+        --liveint 250 got 15 rows where the grid gives 16). Each row's
+        rate divides by the measured time in both."""
+        cfg = self.cfg
+        interval = max(cfg.live_stats_interval_ms,
+                       LIVE_MIN_INTERVAL_MS) / 1000.0
+        use_line = not cfg.disable_live_stats
+        is_tty = sys.stdout.isatty()
+        self._live_started = time.monotonic()
+        self._live_cpu.update()  # baseline for the first render
+        last_bytes = last_iops = 0
+        last_t = self._live_started
+        next_render = self._live_started + interval
+        while not self.manager.all_workers_done():
+            time.sleep(WAIT_WAKEUP_SECS)
+            self.manager.check_phase_time_limit(phase_start)
+            self.manager.check_fail_fast_interrupt()
+            now = time.monotonic()
+            if now < next_render:
+                continue
+            while next_render <= now:
+                next_render += interval
+            entries, num_bytes, iops, done, per_worker = \
+                self._sum_live_ops()
+            dt = max(now - last_t, 1e-9)
+            bps = (num_bytes - last_bytes) / dt
+            ops_per_s = (iops - last_iops) / dt
+            last_bytes, last_iops, last_t = num_bytes, iops, now
+            elapsed = int(now - self._live_started)
+            # the live files are written with the console output off too
+            self._write_live_files(phase, entries, num_bytes, iops, elapsed,
+                                   per_worker)
+            if not use_line:
+                continue
+            unit, div = ("MB", 1000 ** 2) if cfg.use_base10_units \
+                else ("MiB", 1 << 20)
+            fullscreen = (is_tty and not cfg.use_single_line_live_stats
+                          and not cfg.single_line_live_stats_no_erase)
+            if fullscreen:
+                self._render_fullscreen(phase, elapsed, bps / div,
+                                        ops_per_s, unit, div, done)
+                continue
+            line = (f"{phase_name(phase)}: {elapsed}s; "
+                    f"{bps / div:,.0f} {unit}/s; "
+                    f"{ops_per_s:,.0f} IOPS; {entries} entries; "
+                    f"{num_bytes / div:,.0f} {unit} total; "
+                    f"{done}/{len(self.manager.workers)} done")
+            if cfg.show_cpu_util:
+                line += f"; CPU {self._live_cpu.update():.0f}%"
+            if is_tty and not cfg.single_line_live_stats_no_erase:
+                print("\r\x1b[2K" + line, end="", flush=True)
+            else:
+                print(line, flush=True)
+        if use_line and is_tty:
+            if self._fullscreen_active:
+                print("\x1b[2J\x1b[H", end="", flush=True)
+                self._fullscreen_active = False
+                self._exit_fullscreen_keys()
+            elif not cfg.single_line_live_stats_no_erase:
+                print("\r\x1b[2K", end="", flush=True)
+
+    #: worker rows per fullscreen frame when the terminal size is unknown
+    _FS_ROWS = 40
+    #: header and footer lines around the worker table
+    _FS_CHROME_LINES = 6
+    #: this frame's worker rows (read from the terminal once per frame)
+    _fs_rows = _FS_ROWS
+
+    def _term_fs_rows(self) -> int:
+        """Worker rows that fit the terminal now (follows resizes)."""
+        import shutil
+        lines = shutil.get_terminal_size(fallback=(80, 0)).lines
+        return max(lines - self._FS_CHROME_LINES, 4) if lines \
+            else self._FS_ROWS
+
+    def _render_fullscreen(self, phase, elapsed, rate, ops_per_s, unit,
+                           div, done) -> None:
+        """Fullscreen per-worker live table (ANSI; the reference draws it
+        with ftxui, Statistics.cpp:716-1249). The arrow keys, PgUp, PgDn,
+        Home, End and j/k/g/G scroll the worker rows."""
+        cfg = self.cfg
+        workers = self.manager.workers
+        self._fs_rows = self._term_fs_rows()  # one size for the frame
+        self._poll_fullscreen_keys(len(workers))
+        scroll = self._fs_scroll
+        lines = [
+            f"Phase: {phase_name(phase)}   Elapsed: {elapsed}s   "
+            f"Done: {done}/{len(workers)}",
+            f"Total: {rate:,.0f} {unit}/s  {ops_per_s:,.0f} IOPS"
+            + (f"  CPU: {self._live_cpu.update():.0f}%"
+               if cfg.show_cpu_util else ""),
+            "",
+            f"{'Rank':>6} {'Entries':>10} {unit:>10} {'IOPS':>12} "
+            f"{'State':>8}"]
+        window = workers[scroll:scroll + self._fs_rows]
+        for w in window:
+            state = "done" if w.phase_finished else "run"
+            lines.append(
+                f"{w.rank:>6} {w.live_ops.num_entries_done:>10} "
+                f"{w.live_ops.num_bytes_done / div:>10,.0f} "
+                f"{w.live_ops.num_iops_done:>12,} {state:>8}")
+        if len(workers) > len(window):
+            lines.append(f"... showing {scroll}..{scroll + len(window) - 1} "
+                         f"of {len(workers)} workers (arrow keys / PgUp / "
+                         f"PgDn scroll)")
+        # the running tail of the op latencies; a phase that moves no
+        # blocks (mkdirs, stat, deletes) shows its entry latencies
+        io_histo, ent_histo = merge_live_latency_histos(workers)
+        tail_histo, tail_label = ((io_histo, "IO") if any(io_histo.buckets)
+                                  else (ent_histo, "Entry"))
+        if any(tail_histo.buckets):
+            lines.append(
+                f"{tail_label} lat us: "
+                f"p50={tail_histo.percentile(50):,.0f}  "
+                f"p99={tail_histo.percentile(99):,.0f}  "
+                f"p99.9={tail_histo.percentile(99.9):,.0f}  "
+                f"max={tail_histo.max_micro:,}")
+        frame = "\x1b[H" + "\x1b[2K" + "\n\x1b[2K".join(lines) + "\x1b[J"
+        if not self._fullscreen_active:
+            print("\x1b[2J", end="")
+            self._fullscreen_active = True
+            self._enter_fullscreen_keys()
+        print(frame, end="", flush=True)
+
+    def _enter_fullscreen_keys(self) -> None:
+        """Put a terminal stdin into cbreak mode, so that keys arrive
+        without Enter; close() and _exit_fullscreen_keys restore it."""
+        self._fs_scroll = 0
+        self._fs_old_termios = None
+        try:
+            import termios
+            import tty
+            if sys.stdin.isatty():
+                fd = sys.stdin.fileno()
+                self._fs_old_termios = (fd, termios.tcgetattr(fd))
+                tty.setcbreak(fd)
+        except (ImportError, OSError):
+            pass
+
+    def _exit_fullscreen_keys(self) -> None:
+        old = self._fs_old_termios
+        if old is not None:
+            try:
+                import termios
+                termios.tcsetattr(old[0], termios.TCSADRAIN, old[1])
+            except (ImportError, OSError):
+                pass
+            self._fs_old_termios = None
+
+    def _poll_fullscreen_keys(self, num_workers: int) -> None:
+        """Read the pending keys without blocking and move the window over
+        the worker rows."""
+        if self._fs_old_termios is None:
+            return
+        import select
+        scroll = self._fs_scroll
+        max_scroll = max(num_workers - self._fs_rows, 0)
+        buf = b""
+        try:
+            while select.select([sys.stdin], [], [], 0)[0]:
+                chunk = os.read(sys.stdin.fileno(), 64)
+                if not chunk:
+                    break
+                buf += chunk
+        except OSError:
+            pass
+        # key by key: auto-repeat delivers several sequences in one read
+        i = 0
+        while i < len(buf):
+            seq, step = self._match_key_seq(buf[i:])
+            i += step
+            if seq in ("up", "k"):
+                scroll -= 1
+            elif seq in ("down", "j"):
+                scroll += 1
+            elif seq in ("pgup", "\x02"):
+                scroll -= self._fs_rows
+            elif seq in ("pgdn", "\x06"):
+                scroll += self._fs_rows
+            elif seq in ("home", "g"):
+                scroll = 0
+            elif seq in ("end", "G"):
+                scroll = max_scroll
+        self._fs_scroll = min(max(scroll, 0), max_scroll)
+
+    _ESC_SEQS = {b"\x1b[A": "up", b"\x1b[B": "down", b"\x1b[5~": "pgup",
+                 b"\x1b[6~": "pgdn", b"\x1b[H": "home", b"\x1b[F": "end"}
+
+    @classmethod
+    def _match_key_seq(cls, buf: bytes) -> "tuple[str, int]":
+        """The key at the front of buf -> (name, bytes consumed)."""
+        if buf[:1] == b"\x1b":
+            for seq, name in cls._ESC_SEQS.items():
+                if buf.startswith(seq):
+                    return name, len(seq)
+            return "", 1  # an unknown escape: skip the ESC byte
+        return chr(buf[0]), 1
+
+    def _write_live_files(self, phase, entries, num_bytes, iops, elapsed,
+                          per_worker) -> None:
+        """One row of totals to --livecsv and --livejson (the JSON row
+        with each worker's counters of `per_worker`, [(rank, LiveOps)],
+        under --livejsonex or --livecsvex).
+        The CSV escapes the label's commas to ';', as the result CSV
+        does: the JAX package writes it raw, so a label with a comma gave
+        a row wider than its header."""
+        cfg = self.cfg
+        if cfg.live_csv_file_path:
+            if self._live_csv_fh is None:
+                self._live_csv_fh = (sys.stdout
+                                     if cfg.live_csv_file_path == "stdout"
+                                     else open(cfg.live_csv_file_path, "a"))
+                print("ISODate,Label,Phase,Seconds,Entries,Bytes,IOPS",
+                      file=self._live_csv_fh, flush=True)
+            label = cfg.bench_label.replace(",", ";")
+            print(f"{time.strftime('%Y-%m-%dT%H:%M:%S')},"
+                  f"{label},{phase_name(phase)},{elapsed},"
+                  f"{entries},{num_bytes},{iops}",
+                  file=self._live_csv_fh, flush=True)
+        if cfg.live_json_file_path:
+            if self._live_json_fh is None:
+                self._live_json_fh = (sys.stdout
+                                      if cfg.live_json_file_path == "stdout"
+                                      else open(cfg.live_json_file_path, "a"))
+            rec = {"ISODate": time.strftime("%Y-%m-%dT%H:%M:%S"),
+                   "Label": cfg.bench_label, "Phase": phase_name(phase),
+                   "Seconds": elapsed, "Entries": entries,
+                   "Bytes": num_bytes, "IOPS": iops}
+            if cfg.live_json_extended or cfg.live_csv_extended:
+                rec["Workers"] = [{"Rank": rank, **ops.as_dict()}
+                                  for rank, ops in per_worker]
+            print(json.dumps(rec), file=self._live_json_fh, flush=True)
+        if cfg.live_csv_file_path or cfg.live_json_file_path:
+            self._live_rows += 1
+        self._flush_live_files()
+
+    def _flush_live_files(self) -> None:
+        """Push the live streams to stable storage every interval, so a
+        tailer on another host of a network file system sees each row;
+        best effort (stdout and pipes have no fsync)."""
+        for fh in (self._live_csv_fh, self._live_json_fh):
+            if fh is None:
+                continue
+            try:
+                fh.flush()
+                os.fsync(fh.fileno())
+            except (OSError, ValueError):
+                pass
+
+    def close(self) -> None:
+        """Restore the terminal and close the live files."""
+        self._exit_fullscreen_keys()
+        for fh in (self._live_csv_fh, self._live_json_fh):
+            if fh is not None and fh is not sys.stdout:
+                fh.close()
+        self._live_csv_fh = self._live_json_fh = None
+
+    def abort_cleanup(self) -> None:
+        """An aborted run: close the live streams and remove live files
+        that hold no data row, so that a run after it finds no stale
+        header-only file."""
+        self.close()
+        if self._live_rows:
+            return  # real data: keep the files
+        for path in (self.cfg.live_csv_file_path,
+                     self.cfg.live_json_file_path):
+            if not path or path == "stdout":
+                continue
+            try:
+                # the streams append: an earlier run's rows may be in the
+                # file, so only an empty or header-only file goes
+                with open(path) as f:
+                    head = f.readline()
+                    more = f.readline()
+                if more or (head and not head.startswith("ISODate")):
+                    continue
+                os.unlink(path)
+            except OSError:
+                pass
+
+    # ------------------------------------------------------------------
+    # phase results (reference: printPhaseResults :1619 /
+    # generatePhaseResults :1695)
+    # ------------------------------------------------------------------
 
     def generate_phase_results(self, phase: BenchPhase) -> PhaseResults:
         res = PhaseResults()

@@ -36,6 +36,11 @@ class LiveOps:
         self.num_bytes_done = 0
         self.num_iops_done = 0
 
+    def as_dict(self) -> dict:
+        return {"NumEntriesDone": self.num_entries_done,
+                "NumBytesDone": self.num_bytes_done,
+                "NumIOPSDone": self.num_iops_done}
+
 
 class Worker:
     def __init__(self, shared: WorkersSharedData, rank: int):
@@ -49,6 +54,7 @@ class Worker:
         self.elapsed_usec_vec: "list[int]" = []
         self.stonewall_elapsed_usec = 0
         self.got_phase_work = True
+        self.phase_finished = False  # the fullscreen live view's state
         self.is_interrupted = False
         # the interruption flag as the native engine polls it
         self._native_interrupt = ctypes.c_int(0)
@@ -87,6 +93,7 @@ class Worker:
         self.elapsed_usec_vec = []
         self.stonewall_elapsed_usec = 0
         self.got_phase_work = True
+        self.phase_finished = False
         self._ops_since_check = 0
         self.gpu_transfer_bytes = 0
         self.gpu_transfer_usec = 0
@@ -110,6 +117,7 @@ class Worker:
             self.stonewall_elapsed_usec = self.phase_elapsed_usec()
             self.stonewall_taken = True
         self.elapsed_usec_vec.append(self.phase_elapsed_usec())
+        self.phase_finished = True
 
     def phase_elapsed_usec(self) -> int:
         return int((time.monotonic()

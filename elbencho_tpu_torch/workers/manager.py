@@ -3,9 +3,9 @@
 Reference: elbencho_tpu/workers/manager.py (source/workers/
 WorkerManager.{h,cpp}), local workers only: prepareThreads() :143,
 startNextPhase() :292, waitForWorkersDone() :246 with the time-limit
-check :110 and fail-fast interrupt, per-phase work accounting
-getPhaseNumEntriesAndBytes() :334-489 (for --dryrun), and the slice
-phase's rank->shard map.
+check :110 and fail-fast interrupt, the live loop's all-done test,
+per-phase work accounting getPhaseNumEntriesAndBytes() :334-489 (for
+--dryrun), and the slice phase's rank->shard map.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from ..phases import BenchPathType, BenchPhase
 from .local_worker import LocalWorker
 from .shared import WorkerException, WorkersSharedData
 
-#: periodic wakeup for the time-limit and fail-fast checks: the JAX
-#: package's live-stats poll interval, so --timelimit overruns by at most
-#: this much plus the workers' own reaction time
+#: periodic wakeup for the time-limit and fail-fast checks, here and in
+#: the live statistics loop (the JAX package's live-stats poll interval),
+#: so --timelimit overruns by at most this much plus the workers' own
+#: reaction time
 WAIT_WAKEUP_SECS = 0.02
 
 
@@ -156,6 +157,13 @@ class WorkerManager:
                 return (entries, cfg.random_amount)
             return (entries, cfg.file_size * entries)
         return (entries, 0)
+
+    def all_workers_done(self) -> bool:
+        """Every worker finished the phase, with or without an error (the
+        live statistics loop's exit test)."""
+        shared = self.shared
+        return (shared.num_workers_done
+                + shared.num_workers_done_with_error) >= len(self.workers)
 
     def interrupt_and_notify_workers(self) -> None:
         for worker in self.workers:
