@@ -129,7 +129,26 @@ without printing a result otherwise. In order it:
    header and 7 columns a row; prints each run's rows, the least and
    most rate between two rows and the phase's MiB/s beside the --nolive
    twin's;
-14. prints the kernel line {"kernels": [...]} and, last, the result line
+14. data-plane fault tolerance (fault_pass), after 13 and before 7, on
+   the main path's file at -t 2 -b 16M --iodepth 4 with
+   ELBENCHO_TPU_TESTING=1 for the pass alone: --ioretries 3 with every
+   5th storage op short (the ring through the engine's
+   ELBENCHO_TPU_IO_FAULT, the Python loop through a patched os.preadv),
+   staged and --gpudirect, each beside a clean read, a short --verify
+   read and a short 1 GiB --gpudirect --gpuverify read (one launch per
+   block); hang:13 with --iotimeout 1; eio:7, which must fail unless the
+   file is on a network file system; a simulated lost GPU under
+   --gpufallback host (a 1 GiB --gpuverify read, every block verified on
+   the card or the host, and a --verify write that a fresh read
+   verifies) and under the default, which must fail naming
+   --gpufallback; then a real sticky CUDA error (chip_sticky_fault.cu's
+   store through the null pointer) in a child process writing under
+   --gpufallback host, which must exit 0 with TpuChipFailovers 1 (or,
+   if the process cannot outlive it, fail with a clear error, printed
+   as a finding), and a fresh read here that verifies its file; prints
+   each run's rate beside the clean one, retries, timeouts, the time
+   from the loss to the first host-staged copy and the rate after it;
+15. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -1825,6 +1844,373 @@ def live_pass(work: str) -> int:
     return total
 
 
+FAULT_SHORT_EVERY = 5           # (a): every 5th storage op reads short
+FAULT_SIZE = 1 << 30            # the 1 GiB reads and writes of (a), (d), (e)
+FAULT_LOSS_AT = 9               # (d), (e): the copy that meets the lost GPU
+CUDA_LOSS_TEXT = "CUDA error: an illegal memory access was encountered"
+
+
+@contextlib.contextmanager
+def short_preadv(every: int):
+    """The Python loop's fault seam: every `every`th os.preadv of each
+    thread returns 512 bytes short (the ring's seam is the engine's
+    ELBENCHO_TPU_IO_FAULT). Per thread, so a retry never lands on the
+    next fault of another worker."""
+    real = os.preadv
+    local = threading.local()
+
+    def preadv(fd, bufs, off):
+        n = real(fd, bufs, off)
+        local.calls = getattr(local, "calls", 0) + 1
+        return n - 512 if local.calls % every == 0 and n > 512 else n
+
+    os.preadv = preadv
+    try:
+        yield
+    finally:
+        os.preadv = real
+
+
+@contextlib.contextmanager
+def lost_gpu(method: str, at: int):
+    """A simulated lost GPU: the `at`th call of CudaWorkerContext.<method>
+    in this process raises the CUDA runtime's illegal-address error, as
+    the first call after a sticky error does. Yields a dict with the time
+    it fired and (time, bytes) of every host-staged copy after it."""
+    from elbencho_tpu_torch.cuda.device import CudaWorkerContext as ctx
+    real = getattr(ctx, method)
+    staged = {name: getattr(ctx, name)
+              for name in ("_host_staged_h2d", "_host_staged_d2h")}
+    lock = threading.Lock()
+    state = {"calls": 0, "fired": None, "staged": []}
+
+    def failing(self, *args, **kwargs):
+        with lock:
+            state["calls"] += 1
+            fire = state["calls"] == at
+        if fire:
+            state["fired"] = time.monotonic()
+            raise RuntimeError(CUDA_LOSS_TEXT)
+        return real(self, *args, **kwargs)
+
+    def timed(fn):
+        def wrapper(self, buf, length, *args):
+            fn(self, buf, length, *args)
+            with lock:
+                state["staged"].append((time.monotonic(), length))
+        return wrapper
+
+    setattr(ctx, method, failing)
+    for name, fn in staged.items():
+        setattr(ctx, name, timed(fn))
+    try:
+        yield state
+    finally:
+        setattr(ctx, method, real)
+        for name, fn in staged.items():
+            setattr(ctx, name, fn)
+
+
+def failing_run(name: str, args: "list[str]", json_path: str,
+                want: str) -> str:
+    """A CLI run that must fail with `want` in its error output; returns
+    that output."""
+    err = _Tee()
+    with contextlib.redirect_stderr(err):
+        rc, _ = run_cli(args, json_path)
+    text = err.text.getvalue()
+    if rc == 0 or want not in text:
+        fail(f"pass '{name}' exited {rc}; want a failure naming '{want}'")
+    return text
+
+
+def sticky_child(argv: "list[str]") -> int:
+    """Runs in a child process: the CLI with `argv`, where the
+    FAULT_LOSS_AT-th device->host copy first enqueues chip_sticky_fault.cu's
+    store through the null pointer on the worker's own stream. The fault
+    is a sticky CUDA error (cudaErrorIllegalAddress): from then on every
+    call into the GPU's context fails, in both workers, as after a lost
+    GPU. Returns the CLI's exit code."""
+    import ctypes
+
+    import torch
+    sys.path.insert(0, REPO)
+    from elbencho_tpu_torch.cli import main as cli_main
+    from elbencho_tpu_torch.cuda.device import CudaWorkerContext
+    from elbencho_tpu_torch.ops.cuda_build import load_library
+    launch = load_library("chip_sticky_fault",
+                          source_dir=REPO).sticky_fault_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    real = CudaWorkerContext.device_to_host
+    lock = threading.Lock()
+    calls = [0]
+
+    def faulting(self, *args, **kwargs):
+        with lock:
+            calls[0] += 1
+            count = calls[0]
+        if count == FAULT_LOSS_AT:
+            with torch.cuda.device(self.device):
+                err = launch(None, self.stream.cuda_stream)
+            print(f"STICKY_FAULT enqueued on {self.device} (cudaError "
+                  f"{err}) before device->host copy {count}", flush=True)
+        return real(self, *args, **kwargs)
+
+    CudaWorkerContext.device_to_host = faulting
+    return cli_main(argv)
+
+
+def sticky_fault_run(work: str) -> int:
+    """(e): a real sticky CUDA error in a child process under
+    --gpufallback host; then this process verifies the child's file.
+    Returns the fingerprint launches of that read (none where the child
+    could not outlive the error)."""
+    path = os.path.join(work, "sticky.bin")
+    json_path = os.path.join(work, "sticky.json")
+    args = ["-w", "-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "-s",
+            f"{FAULT_SIZE >> 20}M", "--iodepth", "4", "--gpuids", "0",
+            "--verify", "7", "--gpufallback", "host", "--nolive",
+            "--jsonfile", json_path, path]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.sticky_child(sys.argv[1:]))", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("the sticky-fault child hung (no exit within 300 s)")
+    secs = time.monotonic() - t0
+    sys.stdout.write(proc.stdout)
+    sys.stdout.write(proc.stderr)  # its error lines are the finding
+    if "STICKY_FAULT enqueued" not in proc.stdout:
+        fail("the sticky-fault child never enqueued the faulting store")
+    if proc.returncode < 0 or "Traceback" in proc.stderr:
+        fail(f"the sticky-fault child died (exit {proc.returncode}) or "
+             f"raised past the guard")
+    if proc.returncode != 0:
+        # the run carried on no further: it must say why, in words
+        if "lost" not in proc.stderr and "CUDA" not in proc.stderr:
+            fail(f"the sticky-fault child exited {proc.returncode} "
+                 f"without a clear error")
+        print(f"FINDING (e): a sticky CUDA error was not outlived in one "
+              f"process: the child exited {proc.returncode} after "
+              f"{secs:.1f} s with the error above")
+        return 0
+    with open(json_path) as f:
+        (child,) = [json.loads(line) for line in f]
+    expect("sticky-fault child", child, BytesLast=FAULT_SIZE,
+           TpuChipFailovers=1)
+    if "degraded to host-memory staging" not in proc.stderr:
+        fail("the sticky-fault child logged no failover to host staging")
+    reached = [line.split("ERROR: ", 1)[1]
+               for line in proc.stderr.splitlines()
+               if "lost mid-phase" in line]
+    warnings = sum("CUDA warning" in line for line in proc.stderr.splitlines())
+    _, launches = run_pass(
+        "fresh --gpuverify read of the sticky-fault child's file",
+        ["-r", "-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "-s",
+         f"{FAULT_SIZE >> 20}M", "--iodepth", "4", "--gpuids", "0",
+         "--verify", "7", "--gpuverify", path],
+        os.path.join(work, "sticky_read.json"), ["READ"])
+    blocks = FAULT_SIZE // MAIN_BLOCK
+    if launches != blocks:
+        fail(f"the fresh read of the child's file made {launches} "
+             f"launches for {blocks} blocks")
+    os.unlink(path)
+    print(f"(e) a real sticky CUDA error in a child process, --gpufallback "
+          f"host: exit 0 after {secs:.1f} s, TpuChipFailovers 1, "
+          f"{child['BytesLast']} bytes at {child['MiBPerSecLast']} MiB/s, "
+          f"{child['TpuD2hStagedOps']} device->host copies (on the card, "
+          f"then host-staged); the errors that reached the guard: "
+          f"{reached}; {warnings} CUDA warnings of torch's destructors; a "
+          f"fresh process verified the file ({launches} launches)")
+    return launches
+
+
+def fault_pass(work: str) -> int:
+    """Data-plane fault tolerance on the card, at the main path's width
+    (-t 2 -b 16M --iodepth 4 --gpuids 0) on its 4 GiB file (the verify
+    pattern of salt 7), with ELBENCHO_TPU_TESTING=1 set for this pass
+    only. Returns the fingerprint launches.
+
+    (a) --ioretries 3 with every 5th storage op short (the ring: the
+        engine's short:5; the Python loop: short_preadv), staged and
+        --gpudirect, each beside a clean read in this run: exit 0, the
+        whole file, IoRetries at least ops/5; a short:5 --verify 7 read
+        of the ring; a 1 GiB --gpudirect --gpuverify short:5 read with
+        one launch per block;
+    (b) hang:13 --iotimeout 1 --ioretries 3: exit 0, IoTimeouts at least
+        1, IoRetries at least IoTimeouts;
+    (c) eio:7: fails with --ioretries 3 unless is_netfs_path says the
+        file is on a network file system (then it passes), and fails
+        without --ioretries;
+    (d) a simulated lost GPU (lost_gpu): --gpufallback host on the 1 GiB
+        --gpudirect --gpuverify read (exit 0, TpuChipFailovers 1, every
+        block verified, on the card or on the host: fewer launches than
+        blocks) and on a --verify 7 write that a fresh read verifies;
+        the default aborts and names --gpufallback;
+    (e) a real sticky CUDA error in a child process (sticky_fault_run).
+
+    Prints each run's MiB/s, retries, timeouts and failovers, the time
+    from the loss to the first host-staged copy and the failed-over
+    worker's rate after it."""
+    from elbencho_tpu_torch.workers.io_errors import is_netfs_path
+    t_start = time.monotonic()
+    path = os.path.join(work, "smoke.bin")
+    json_path = os.path.join(work, "fault.json")
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4",
+              "--gpuids", "0"]
+    retries = ["--ioretries", "3"]
+    os.environ["ELBENCHO_TPU_TESTING"] = "1"
+    total = 0
+    try:
+        print(f"fault pass (a): --ioretries 3, every "
+              f"{FAULT_SHORT_EVERY}th storage op short")
+        for loop, flags in (("staged, fused ring", ["--gpustream", "on"]),
+                            ("staged, Python loop", ["--gpustream", "off"]),
+                            ("--gpudirect, fused ring",
+                             ["--gpudirect", "--gpustream", "on"]),
+                            ("--gpudirect, Python loop",
+                             ["--gpudirect", "--gpustream", "off"])):
+            fused = "fused" in loop
+            (clean,), _ = run_pass(f"clean read, {loop}",
+                                   ["-r", *common, *flags, path],
+                                   json_path, ["READ"])
+            name = f"short:{FAULT_SHORT_EVERY} read, {loop}"
+            if fused:
+                os.environ["ELBENCHO_TPU_IO_FAULT"] = \
+                    f"short:{FAULT_SHORT_EVERY}"
+                seam = contextlib.nullcontext()
+            else:
+                seam = short_preadv(FAULT_SHORT_EVERY)
+            with seam:
+                (rec,), _ = run_pass(name, ["-r", *common, *flags,
+                                            *retries, path],
+                                     json_path, ["READ"])
+            os.environ.pop("ELBENCHO_TPU_IO_FAULT", None)
+            expect(name, rec, BytesLast=MAIN_SIZE, TpuHbmBytes=MAIN_SIZE,
+                   ops=MAIN_BLOCKS,
+                   TpuStreamFusedOps=MAIN_BLOCKS if fused else 0)
+            if rec["IoRetries"] < MAIN_BLOCKS / FAULT_SHORT_EVERY:
+                fail(f"pass '{name}': {rec['IoRetries']} retries for "
+                     f"{MAIN_BLOCKS} ops")
+            print(f"  {name}: {rec['MiBPerSecLast']} MiB/s against "
+                  f"{clean['MiBPerSecLast']} clean "
+                  f"({rec['MiBPerSecLast'] / clean['MiBPerSecLast']:.3f}x)"
+                  f", {rec['IoRetries']} retries, "
+                  f"{rec['IoRetryUsec']} us of backoff")
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = f"short:{FAULT_SHORT_EVERY}"
+        name = f"short:{FAULT_SHORT_EVERY} --verify 7 read, fused ring"
+        (rec,), _ = run_pass(name, ["-r", *common, "--verify", "7",
+                                    *retries, path], json_path, ["READ"])
+        expect(name, rec, BytesLast=MAIN_SIZE, ops=MAIN_BLOCKS)
+        print(f"  {name}: verified, {rec['MiBPerSecLast']} MiB/s, "
+              f"{rec['IoRetries']} retries")
+        name = (f"short:{FAULT_SHORT_EVERY} 1 GiB --gpudirect --gpuverify "
+                f"read, fused ring")
+        (rec,), launches = run_pass(
+            name, ["-r", *common, "-s", f"{FAULT_SIZE >> 20}M",
+                   "--gpudirect", "--verify", "7", "--gpuverify", *retries,
+                   path], json_path, ["READ"])
+        blocks = FAULT_SIZE // MAIN_BLOCK
+        expect(name, rec, BytesLast=FAULT_SIZE, ops=blocks)
+        if launches != blocks or rec["IoRetries"] < blocks / 5:
+            fail(f"pass '{name}': {launches} launches for {blocks} blocks, "
+                 f"{rec['IoRetries']} retries")
+        print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, {launches} launches"
+              f", {rec['IoRetries']} retries")
+        total += launches
+
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = "hang:13"
+        name = "(b) hang:13 read --iotimeout 1 --ioretries 3, fused ring"
+        (rec,), _ = run_pass(name, ["-r", *common, "--iotimeout", "1",
+                                    *retries, path], json_path, ["READ"])
+        expect(name, rec, BytesLast=MAIN_SIZE, ops=MAIN_BLOCKS)
+        if not 1 <= rec["IoTimeouts"] <= rec["IoRetries"]:
+            fail(f"pass '{name}': {rec['IoTimeouts']} timeouts, "
+                 f"{rec['IoRetries']} retries")
+        print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, "
+              f"{rec['IoTimeouts']} timeouts, {rec['IoRetries']} retries")
+
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = "eio:7"
+        netfs = is_netfs_path(path)
+        name = "(c) eio:7 read --ioretries 3"
+        if netfs:
+            (rec,), _ = run_pass(name, ["-r", *common, *retries, path],
+                                 json_path, ["READ"])
+            expect(name, rec, BytesLast=MAIN_SIZE)
+        else:
+            failing_run(name, ["-r", *common, *retries, path], json_path,
+                        "Input/output error")
+        failing_run("(c) eio:7 read without --ioretries",
+                    ["-r", *common, path], json_path, "Input/output error")
+        print(f"  (c) eio:7: the file is {'on' if netfs else 'not on'} a "
+              f"network file system (is_netfs_path), so with --ioretries "
+              f"3 the read {'passed' if netfs else 'failed fast'}; "
+              f"without --ioretries it failed")
+        os.environ.pop("ELBENCHO_TPU_IO_FAULT", None)
+
+        print(f"fault pass (d): a simulated lost GPU at copy "
+              f"{FAULT_LOSS_AT}")
+        name = "(d) 1 GiB --gpudirect --gpuverify read, --gpufallback host"
+        with lost_gpu("host_to_device", FAULT_LOSS_AT) as state:
+            (rec,), launches = run_pass(
+                name, ["-r", *common, "-s", f"{FAULT_SIZE >> 20}M",
+                       "--gpudirect", "--verify", "7", "--gpuverify",
+                       "--gpufallback", "host", path], json_path, ["READ"])
+        expect(name, rec, BytesLast=FAULT_SIZE, TpuChipFailovers=1)
+        host_blocks = len(state["staged"])
+        if not 0 < launches < blocks or launches + host_blocks != blocks:
+            fail(f"pass '{name}': {launches} launches and {host_blocks} "
+                 f"host-verified blocks for {blocks} blocks")
+        first, last = state["staged"][0][0], state["staged"][-1][0]
+        staged_mib = sum(n for _t, n in state["staged"]) / (1 << 20)
+        rate = (f"{staged_mib / (last - first):.2f} MiB/s"
+                if last > first else "not measured (one block)")
+        print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, {launches} blocks "
+              f"verified by the kernel and {host_blocks} on the host after "
+              f"the failover (0 never verified), loss to first host-staged "
+              f"copy {(first - state['fired']) * 1e6:.0f} us, the "
+              f"failed-over worker's rate after it {rate}")
+        total += launches
+        fault_file = os.path.join(work, "fault.bin")
+        name = "(d) 1 GiB --verify 7 write, --gpufallback host"
+        with lost_gpu("device_to_host", FAULT_LOSS_AT) as state:
+            (rec,), _ = run_pass(
+                name, ["-w", *common, "-s", f"{FAULT_SIZE >> 20}M",
+                       "--verify", "7", "--gpufallback", "host",
+                       fault_file], json_path, ["WRITE"])
+        expect(name, rec, BytesLast=FAULT_SIZE, TpuChipFailovers=1)
+        (read,), launches = run_pass(
+            "fresh --gpuverify read of the failed-over write",
+            ["-r", *common, "--verify", "7", "--gpuverify", fault_file],
+            json_path, ["READ"])
+        if launches != blocks:
+            fail(f"the read of the failed-over write made {launches} "
+                 f"launches for {blocks} blocks")
+        print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, "
+              f"{len(state['staged'])} host-staged blocks; a fresh read "
+              f"verified it ({launches} launches)")
+        total += launches
+        os.unlink(fault_file)
+        with lost_gpu("host_to_device", FAULT_LOSS_AT):
+            text = failing_run("(d) read, the default --gpufallback abort",
+                               ["-r", *common, "-s", f"{FAULT_SIZE >> 20}M",
+                                path], json_path, "--gpufallback")
+        print(f"  (d) the default aborts: "
+              f"{[ln for ln in text.splitlines() if 'GPU 0 lost' in ln][:1]}")
+    finally:
+        os.environ.pop("ELBENCHO_TPU_TESTING", None)
+        os.environ.pop("ELBENCHO_TPU_IO_FAULT", None)
+
+    print("fault pass (e): a real sticky CUDA error in a child process")
+    total += sticky_fault_run(work)
+    print(f"fault pass: {time.monotonic() - t_start:.1f} s, {total} "
+          f"fingerprint launches")
+    return total
+
+
 def signal_children(work: str) -> int:
     """The two-stage SIGINT in child processes of the CLI on the card.
     Returns the first child's fingerprint launches."""
@@ -1999,6 +2385,7 @@ def main() -> int:
         launches += runcontrol_pass(work)
         launches += output_pass(work)
         launches += live_pass(work)
+        launches += fault_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

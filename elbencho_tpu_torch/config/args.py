@@ -21,9 +21,12 @@ output flags (``--lat``, ``--lathisto``, ``--latpercent``,
 ``--no0usecerr``, ``--resfile``, ``--csvfile``, ``--jsonfile``,
 ``--nocsvlabels`` and the default result files) and the live statistics
 flags (``--nolive``, ``--liveint``, ``--live1``, ``--live1n``,
-``--livecsv``, ``--livejson``, ``--livecsvex``, ``--livejsonex``).
-Custom trees, the other storage back ends and the remaining flags are
-later slices (ROADMAP.md queue A).
+``--livecsv``, ``--livejson``, ``--livecsvex``, ``--livejsonex``) and
+the data-plane fault tolerance flags (``--ioretries``,
+``--ioretrybudget``, ``--iotimeout``, ``--gpufallback``; the test-only
+``ELBENCHO_TPU_IO_FAULT`` knob is refused outside
+``ELBENCHO_TPU_TESTING=1``). Custom trees, the other storage back ends
+and the remaining flags are later slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -72,6 +75,19 @@ FLAG_DEFS = [
     ("ioengine", None, "io_engine", "str", "auto",
      "Native block-loop engine: auto|sync|aio|uring (auto = sync when "
      "iodepth is 1, kernel AIO otherwise)"),
+    ("ioretries", None, "io_num_retries", "int", 0,
+     "Per-op retries on transient storage errors (EINTR/EAGAIN/"
+     "ETIMEDOUT/short reads, EIO on network filesystems; jittered "
+     "exponential backoff; permanent errors like ENOSPC/EROFS still "
+     "fail fast; 0 = fail on first error, the default)"),
+    ("ioretrybudget", None, "io_retry_budget_secs", "int", 30,
+     "Per-phase, per-worker cap on total I/O retry backoff seconds; "
+     "when spent, the next transient error is final (--ioretries)"),
+    ("iotimeout", None, "io_timeout_secs", "int", 0,
+     "Per-op deadline in seconds for storage ops in the native "
+     "streaming ring (--gpustream): a hung op is cancelled and "
+     "surfaces as ETIMEDOUT — transient, so --ioretries can re-drive "
+     "it on the re-armed slot (0 = no deadline)"),
     ("rand", None, "use_random_offsets", "bool", False,
      "Random offsets instead of sequential"),
     ("dirsharing", None, "do_dir_sharing", "bool", False,
@@ -140,6 +156,13 @@ FLAG_DEFS = [
      "Fail the run when the measured per-block host-side dispatch "
      "overhead of the device transfer pipeline exceeds this many "
      "microseconds (0 = no budget)"),
+    ("gpufallback", None, "gpu_fallback", "str", "abort",
+     "Reaction to a GPU lost mid-phase (a sticky CUDA error): abort = "
+     "fail fast (default); chip = drain+poison the failed GPU and "
+     "redistribute its workers across surviving --gpuids GPUs "
+     "(degrading to host staging when none survive); host = degrade "
+     "straight to host-memory staging. Failovers are audited as "
+     "TpuChipFailovers and flagged DEGRADED-TPU by summarize-json"),
     ("gpuverify", None, "do_gpu_verify", "bool", False,
      "Run integrity verification on the device (CUDA kernel) instead of "
      "the host"),
@@ -218,6 +241,10 @@ BenchConfigBase = dataclasses.make_dataclass("BenchConfigBase",
 class BenchConfig(BenchConfigBase):
     """Typed effective configuration. Derived values (path type, device
     ids, random amount) are computed by derive()."""
+
+    #: the JAX package's bench mode: the port runs POSIX bench paths
+    #: only (its object and netbench modes are later slices)
+    bench_mode = "posix"
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -503,6 +530,39 @@ class BenchConfig(BenchConfigBase):
             raise ConfigError(
                 "--gpustream on has no effect under --gpubench (no "
                 "storage loop to fuse); drop one of the two")
+        if self.io_num_retries < 0:
+            raise ConfigError("--ioretries must be >= 0")
+        if self.io_retry_budget_secs < 0:
+            raise ConfigError("--ioretrybudget must be >= 0")
+        if self.io_timeout_secs < 0:
+            raise ConfigError("--iotimeout must be >= 0")
+        if self.io_timeout_secs and self.bench_mode != "posix":
+            raise ConfigError(
+                "--iotimeout applies to the native streaming ring (POSIX "
+                "block I/O); object/netbench transports already bound "
+                "their requests via HTTP timeouts")
+        if self.gpu_fallback not in ("abort", "chip", "host"):
+            raise ConfigError("--gpufallback must be abort|chip|host")
+        if self.gpu_fallback != "abort" and not self.gpu_ids_str \
+                and not self.gpu_ids:
+            raise ConfigError(
+                "--gpufallback tunes the GPU failover path — it needs "
+                "--gpuids")
+        if os.environ.get("ELBENCHO_TPU_IO_FAULT") \
+                and os.environ.get("ELBENCHO_TPU_TESTING") != "1":
+            # deterministic fault injection is a test-only knob: a
+            # benchmark run with it set would publish numbers corrupted
+            # by design
+            raise ConfigError(
+                "ELBENCHO_TPU_IO_FAULT is a test-only fault-injection "
+                "knob (docs/fault-tolerance.md); refusing to run with it "
+                "set outside a test harness (ELBENCHO_TPU_TESTING=1)")
+        if os.environ.get("ELBENCHO_TPU_IO_FAULT"):
+            from ..utils.native import parse_fault_spec
+            try:  # malformed specs fail at config time, not mid-phase
+                parse_fault_spec(os.environ["ELBENCHO_TPU_IO_FAULT"])
+            except ValueError as err:
+                raise ConfigError(str(err)) from None
         if self.gpu_batch_blocks > 1 and self.do_gpu_verify:
             # the aggregated copy skips the per-block on-device check
             raise ConfigError(

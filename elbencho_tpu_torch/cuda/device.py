@@ -22,9 +22,12 @@ staging (LocalWorker.cpp:1427-1537, :2437-2490):
 
 Every device call runs inside ``torch.cuda.stream(self.stream)``: the
 current stream is per thread, and workers are threads. There are no
-fallbacks: a failed registration or copy raises. On a CPU device (tests
-only, by explicit request) the same code runs with plain copies and a
-transfer completes at once.
+quiet fallbacks: a failed registration or copy raises. The one way on
+after a lost GPU is the failover the user asks for with ``--gpufallback
+chip|host`` (``failover_to_chip``, ``failover_to_host``; the worker
+decides with ``is_device_loss_error``), logged and counted in
+TpuChipFailovers. On a CPU device (tests only, by explicit request) the
+same code runs with plain copies and a transfer completes at once.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..ops.fill import random_block_u32, verify_pattern_block_u32
+from ..ops.fill import (fill_verify_pattern_host, random_block_u32,
+                        verify_pattern_block_u32)
 from ..ops.verify import load_kernel, verify_block_on_device
 from ..toolkits.logger import LOG_NORMAL, log
+from ..toolkits.random_algos import RandAlgoGoldenPrime
 from ..utils.staging_pool import StagingPool
 
 #: H2D/D2H path-audit counter map: (context attribute, JSON key). The
@@ -56,29 +61,48 @@ PATH_AUDIT_COUNTERS = (
     ("pipe_full_stalls", "TpuPipeFullStalls"),
     ("pipe_inflight_hwm", "TpuPipeInflightHwm"),
     ("stream_fused_ops", "TpuStreamFusedOps"),
+    # --gpufallback failovers of this phase
+    ("chip_failovers", "TpuChipFailovers"),
 )
 
-#: --gpuslice counters (workers/gpuslice.py), owned by the worker, not
-#: by its device context: the slice phase runs with or without one
+#: counters owned by the worker, not by its device context: the storage
+#: retries of --ioretries/--iotimeout and the --gpuslice counters
+#: (workers/gpuslice.py) happen with or without one
 PATH_AUDIT_WORKER_COUNTERS = (
+    ("io_retries", "IoRetries"),
+    ("io_retry_usec", "IoRetryUsec"),
+    ("io_timeouts", "IoTimeouts"),
     ("shard_ingest_mib", "ShardIngestMiB"),
     ("ici_redist_mib", "IciRedistMiB"),
     ("ici_redist_usec", "IciRedistUSec"),
     ("ici_gbps_hwm", "IciGbpsHwm"),
 )
 
+#: the keys in the order of a record: the JAX package's, where the
+#: worker's three retry counters come before TpuChipFailovers
+PATH_AUDIT_KEYS = (
+    "TpuH2dDirectOps", "TpuH2dStagedOps", "TpuH2dDirectFallbacks",
+    "TpuD2hDirectOps", "TpuD2hStagedOps", "TpuD2hDirectFallbacks",
+    "TpuD2hPrefetchHits", "TpuD2hPrefetchMisses", "TpuPipeFullStalls",
+    "TpuPipeInflightHwm", "TpuStreamFusedOps", "IoRetries", "IoRetryUsec",
+    "IoTimeouts", "TpuChipFailovers", "ShardIngestMiB", "IciRedistMiB",
+    "IciRedistUSec", "IciGbpsHwm",
+)
+
 #: counters that merge across workers as MAX, not sum: a high-water mark
 #: summed over workers would report a depth (or a rate) no single ring
-#: (or stripe) ever reached
-PATH_AUDIT_MAX_KEYS = frozenset({"TpuPipeInflightHwm", "IciGbpsHwm"})
+#: (or stripe) ever reached. Every worker of a lost GPU records its own
+#: failover, so a sum of TpuChipFailovers would multiply one loss by the
+#: worker count: MAX gives the longest failover chain of one worker.
+PATH_AUDIT_MAX_KEYS = frozenset({"TpuPipeInflightHwm", "TpuChipFailovers",
+                                 "IciGbpsHwm"})
 
 
 def sum_path_audit_counters(workers) -> dict:
     """Total the path-audit counters over the workers' device contexts
-    and the worker-owned slice counters (keyed by JSON name);
-    PATH_AUDIT_MAX_KEYS entries merge as max."""
-    totals = {key: 0 for _, key in PATH_AUDIT_COUNTERS
-              + PATH_AUDIT_WORKER_COUNTERS}
+    and the worker-owned counters (keyed by JSON name, in the order of
+    PATH_AUDIT_KEYS); PATH_AUDIT_MAX_KEYS entries merge as max."""
+    totals = dict.fromkeys(PATH_AUDIT_KEYS, 0)
     for w in workers:
         ctx = getattr(w, "_gpu", None)
         pairs = [(w, attr, key) for attr, key in PATH_AUDIT_WORKER_COUNTERS]
@@ -91,6 +115,76 @@ def sum_path_audit_counters(workers) -> dict:
             else:
                 totals[key] += val
     return totals
+
+
+#: message markers of a lost device, kept narrow so that an unrelated
+#: RuntimeError (the --gpubudget breach, whose text mentions DMA) never
+#: fails over. The first nine are the JAX package's; the rest are the
+#: CUDA runtime's texts of the errors in _STICKY_CUDA_ERRORS, and the
+#: driver's words for a card that left the bus.
+_DEVICE_LOSS_MARKERS = (
+    "device lost", "data loss", "data_loss", "failed to enqueue",
+    "device is in an error state", "device unavailable",
+    "chip is unavailable", "hardware failure", "device halted",
+    "an illegal memory access was encountered",
+    "unspecified launch failure", "uncorrectable ecc error",
+    "hardware stack error", "an illegal instruction was encountered",
+    "misaligned address", "invalid program counter",
+    "cuda-capable device(s) is/are busy or unavailable",
+    "uncorrectable nvlink error", "gpu is lost", "fallen off the bus",
+)
+
+#: CUDA runtime errors that are sticky: once one is raised, every later
+#: call into that device's context fails, so the process can no longer
+#: use the device. Out of memory, an invalid argument and
+#: cudaErrorNotReady are not sticky, and never count as a loss.
+_STICKY_CUDA_ERRORS = {
+    46: "cudaErrorDevicesUnavailable",
+    214: "cudaErrorECCUncorrectable",
+    220: "cudaErrorNvlinkUncorrectable",
+    700: "cudaErrorIllegalAddress",
+    714: "cudaErrorHardwareStackError",
+    715: "cudaErrorIllegalInstruction",
+    716: "cudaErrorMisalignedAddress",
+    718: "cudaErrorInvalidPc",
+    719: "cudaErrorLaunchFailure",
+}
+
+#: exception type names of a device failure, matched by name (the JAX
+#: package's names, so that its fake errors classify alike, and the
+#: port's own)
+_DEVICE_LOSS_TYPE_NAMES = ("XlaRuntimeError", "DeviceLostError",
+                           "TpuDeviceLostError", "GpuDeviceLostError")
+
+
+def is_device_loss_error(err: BaseException) -> bool:
+    """Classify an exception raised on the device transfer path: True for
+    a lost device (the failover trigger of --gpufallback), False for
+    everything else: a logic error, an out-of-memory or a --gpubudget
+    breach must abort, never fail over. A CUDA error counts by its code
+    (``torch.AcceleratorError.error_code`` where torch sets one), else by
+    its text. The port's own kernel wrappers (``fingerprint_u32``) name
+    their error by number only, so a fault of the port's own kernel
+    aborts, naming the kernel, instead of passing for a lost GPU."""
+    for cls in type(err).__mro__:
+        if cls.__name__ in _DEVICE_LOSS_TYPE_NAMES:
+            return True
+    if getattr(err, "error_code", None) in _STICKY_CUDA_ERRORS:
+        return True
+    msg = str(err).lower()
+    return any(marker in msg for marker in _DEVICE_LOSS_MARKERS)
+
+
+class GpuDeviceLostError(RuntimeError):
+    """The error of --gpufallback abort (the default) on a lost device:
+    it names the GPU, and the flag that would have carried on."""
+
+    def __init__(self, chip_id: int, cause: BaseException):
+        self.chip_id = chip_id
+        super().__init__(
+            f"GPU {chip_id} lost mid-phase "
+            f"({type(cause).__name__}: {cause}); rerun with --gpufallback "
+            f"chip|host to survive single-GPU loss")
 
 
 class TransferPipeline:
@@ -184,6 +278,13 @@ class TransferPipeline:
         while len(self._ring) > max(max_inflight, 0):
             self._drain_one()
 
+    def poison(self) -> None:
+        """Drop every in-flight entry without waiting for it: the
+        failover path. A wait on a lost device raises again or hangs,
+        and the data of the copies in flight is gone either way. The
+        timing counters keep what they accumulated."""
+        self._ring.clear()
+
     def check_budget(self) -> None:
         if not self.budget_usec or not self.ops:
             return
@@ -246,9 +347,8 @@ class CudaWorkerContext:
                  batch_blocks: int = 1,
                  staging_pool: "StagingPool | None" = None,
                  device: "str | None" = None):
-        self.chip_id = chip_id
-        self.device = resolve_device(chip_id, device)
-        self.on_cuda = self.device.type == "cuda"
+        self._device_request = device
+        self._set_device(chip_id)
         self.direct = direct
         self.verify_on_device = verify_on_device
         # --gpuhbmpct budget: resident device memory is the fill pool +
@@ -286,8 +386,6 @@ class CudaWorkerContext:
         max_depth = max((budget_blocks - self._pool_blocks - 1)
                         // (2 * self.batch_blocks), 1)
         self.pipeline_depth = min(max(pipeline_depth, 1), max_depth)
-        self.stream = torch.cuda.Stream(self.device) if self.on_cuda \
-            else None
         self._own_pool = None
         if staging_pool is None:
             staging_pool = self._own_pool = StagingPool(0, 0)
@@ -295,6 +393,7 @@ class CudaWorkerContext:
         if direct and self.on_cuda:
             # one-time page-lock of the I/O slots (--cuhostbufreg)
             staging_pool.register_slots()
+        self._block_size = block_size
         self._num_words = max(block_size // 4, 1)
         # one H2D ring slot on the device: a block, or a --gpubatch span
         # rounded up to whole words (e.g. -b 6 --gpubatch 3)
@@ -302,8 +401,6 @@ class CudaWorkerContext:
         if self.batch_blocks > 1:
             agg_bytes = self.batch_blocks * max(block_size, 1)
             self._slot_bytes = max(agg_bytes + (-agg_bytes) % 4, 4)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(chip_id)
         self._pipeline = TransferPipeline(self.pipeline_depth,
                                           budget_usec=dispatch_budget_usec,
                                           stream=self.stream)
@@ -322,8 +419,10 @@ class CudaWorkerContext:
         self._last_ingested = None
         # write-source pool: filled ONCE, like the reference's
         # curandGenerate at allocGPUIOBuffer time; (device block, host
-        # mirror) pairs, the mirror None under --gpudirect
+        # mirror) pairs, the mirror None under --gpudirect. The mirrors
+        # are host memory and outlive a failover to another GPU.
         self._fill_pool: list = []
+        self._fill_mirrors: "list[torch.Tensor]" = []
         self._fill_idx = 0
         # speculative verify-pattern ring: (offset, length, salt) ->
         # (device block, host copy, event); host copies go to depth+1
@@ -343,8 +442,120 @@ class CudaWorkerContext:
         self.h2d_direct_fallbacks = 0
         self.d2h_direct_fallbacks = 0
         self.stream_fused_ops = 0  # storage ops of the fused stream ring
+        # --gpufallback: failovers of this phase (a path-audit counter),
+        # and the host-staging latch, which holds for the run: a lost
+        # GPU stays lost (workers/local_worker.py decides the failover)
+        self.chip_failovers = 0
+        self._device_lost = False    # poisoned: never call into the GPU
+        self._host_staging = False
+        self._host_sink = None       # host staging: the H2D sink buffer
+        self._host_fill_pool: "list[np.ndarray]" = []  # its write source
         if verify_on_device and self.on_cuda:
             load_kernel()  # build outside the timed phase
+
+    def _set_device(self, chip_id: int) -> None:
+        """Point the context at GPU chip_id: its device, its own stream
+        and its own fill generator, seeded by the GPU id."""
+        self.chip_id = chip_id
+        self.device = resolve_device(chip_id, self._device_request)
+        self.on_cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.on_cuda \
+            else None
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(chip_id)
+
+    # -- failover (--gpufallback): carry on after a lost GPU ----------------
+
+    @property
+    def host_staging(self) -> bool:
+        """True once the context degraded to host-memory staging after a
+        lost GPU (--gpufallback host, or chip with no survivor)."""
+        return self._host_staging
+
+    def _poison_device_state(self) -> None:
+        """Drop every reference to device state without one call into
+        the (possibly dead) device: in-flight ring entries, device slots,
+        the fill pool's device blocks, speculated blocks and the profile
+        warm-up buffers. The page-locked host buffers stay: they are
+        registered portable, so a surviving GPU copies from them too.
+        Until a failover to another GPU, drain() and close() make no
+        device call either: after a sticky CUDA error every call into
+        the lost context fails."""
+        self._device_lost = True
+        self._pipeline.poison()
+        self._dev_slots = []
+        self._h2d_submits = 0
+        self._h2d_agg_bytes = 0
+        self._last_ingested = None
+        self._fill_pool = []
+        self._fill_idx = 0
+        self._d2h_spec = {}
+        self._d2h_spec_miss_streak = 0
+        self._profile_warmup = None
+
+    def failover_to_chip(self, new_chip_id: int) -> None:
+        """Poison the lost GPU's state and point this context at a
+        surviving one, with a stream, slots, fill pool and generator of
+        its own. The caller (LocalWorker) picks the survivor and adds the
+        lost GPU to the shared poison set."""
+        from ..toolkits.logger import log_error
+        self._poison_device_state()
+        old = self.chip_id
+        self._set_device(new_chip_id)
+        self._pipeline.stream = self.stream
+        self._device_lost = False
+        self.chip_failovers += 1
+        log_error(f"GPU {old} lost; worker failed over to GPU "
+                  f"{new_chip_id} (--gpufallback chip)")
+
+    def failover_to_host(self) -> None:
+        """Degrade to host-memory staging: a copy becomes a host memcpy
+        (the accounting goes on, so the phase's record is whole and
+        TpuChipFailovers marks it DEGRADED-TPU), and the worker verifies
+        on the host instead of the device."""
+        from ..toolkits.logger import log_error
+        self._poison_device_state()
+        self._host_staging = True
+        self.verify_on_device = False
+        self.chip_failovers += 1
+        log_error(f"GPU {self.chip_id} lost; worker degraded to "
+                  f"host-memory staging (--gpufallback host)")
+
+    def _host_staged_h2d(self, buf: memoryview, length: int) -> None:
+        """Host-staging H2D: the staging copy without a device, counted
+        as a staged op."""
+        t0 = time.perf_counter_ns()
+        n_words = length // 4
+        view = np.frombuffer(buf[:n_words * 4], dtype=np.uint32)
+        if self._host_sink is None or len(self._host_sink) < n_words:
+            self._host_sink = np.empty(max(n_words, self._num_words),
+                                       dtype=np.uint32)
+        self._host_sink[:n_words] = view
+        self.h2d_staged_ops += 1
+        self._pipeline.note_dispatch((time.perf_counter_ns() - t0) // 1000)
+
+    def _host_staged_d2h(self, buf: memoryview, length: int,
+                         verify_salt: int, file_offset: int) -> None:
+        """Host-staging D2H: the bytes the JAX package's host staging
+        writes, the verify pattern under --verify and otherwise a pool
+        of the "fast" generator seeded by the GPU id, so a failed-over
+        write phase still writes verifiable content."""
+        t0 = time.perf_counter_ns()
+        if verify_salt:
+            fill_verify_pattern_host(buf, file_offset, length, verify_salt)
+        else:
+            if not self._host_fill_pool:
+                fill = RandAlgoGoldenPrime(seed=self.chip_id + 1)
+                blk = max(-(-self._block_size // 4) * 4, 4)
+                self._host_fill_pool = [
+                    np.frombuffer(fill.fill_buffer(blk), dtype=np.uint8)
+                    for _ in range(self._FILL_POOL_BLOCKS)]
+            self._fill_idx = (self._fill_idx + 1) \
+                % len(self._host_fill_pool)
+            dst = np.frombuffer(buf, dtype=np.uint8, count=length)
+            dst[:] = self._host_fill_pool[self._fill_idx][:length]
+        self.d2h_staged_ops += 1
+        self._pipeline.note_dispatch((time.perf_counter_ns() - t0) // 1000)
 
     def _on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream is not None \
@@ -380,6 +591,9 @@ class CudaWorkerContext:
           out when the next block would not fit (or at flush); it counts
           as one op of the path (staged or direct) that was asked for.
         """
+        if self._host_staging:  # degraded after a lost GPU
+            self._host_staged_h2d(buf, length)
+            return
         nbytes = (length // 4) * 4
         self._ensure_h2d_slots()
         if self.batch_blocks > 1:
@@ -452,6 +666,7 @@ class CudaWorkerContext:
                 torch.empty(self._slot_bytes, dtype=torch.uint8,
                             device=self.device)
                 for _ in range(self.pipeline_depth)]
+        if not self._bounce:
             if self.batch_blocks > 1:
                 self._bounce = self._host_buffers(self.pipeline_depth,
                                                   self._slot_bytes)
@@ -529,8 +744,10 @@ class CudaWorkerContext:
         or writing a host buffer. A partly filled --gpubatch span is
         dropped, as at the next phase's start."""
         self._pipeline.flush(check_budget=False)
-        if self.stream is not None:
-            self.stream.synchronize()  # speculative copies still in flight
+        if self.stream is not None and not self._device_lost:
+            # speculative copies still in flight (a lost GPU's stream is
+            # never waited on: the wait raises again)
+            self.stream.synchronize()
 
     def profile_warmup(self) -> None:
         """One 4-byte host->device copy on this worker's stream, made at
@@ -559,8 +776,9 @@ class CudaWorkerContext:
     def _ensure_fill_pool(self) -> None:
         if self._fill_pool:
             return
-        mirrors = [None] * self._pool_blocks if self.direct \
-            else self._host_buffers(self._pool_blocks)
+        if not self.direct and not self._fill_mirrors:
+            self._fill_mirrors = self._host_buffers(self._pool_blocks)
+        mirrors = self._fill_mirrors or [None] * self._pool_blocks
         with self._on_stream():
             for host in mirrors:
                 block = random_block_u32(self._generator, self._num_words,
@@ -595,6 +813,9 @@ class CudaWorkerContext:
           stream hits (d2h_prefetch_hits), a random one misses
           (d2h_prefetch_misses) and speculation stops after a miss streak.
         """
+        if self._host_staging:  # degraded after a lost GPU
+            self._host_staged_d2h(buf, length, verify_salt, file_offset)
+            return
         n_words = max(length // 4, 1)
         t0 = time.perf_counter_ns()
         if verify_salt:
@@ -692,6 +913,7 @@ class CudaWorkerContext:
         self._dev_slots = []
         self._bounce = []
         self._fill_pool = []
+        self._fill_mirrors = []
         self._d2h_spec = {}
         self._spec_bufs = []
         if self._own_pool is not None:

@@ -6,7 +6,8 @@ covers the source, the compiler and its flags, so an edited source is
 never served from a stale library) and loaded with ``ctypes``:
 
 - ``load_library(name)``: the CUDA kernel ``csrc/<name>.cu``, built with
-  ``nvcc -gencode arch=compute_90a,code=sm_90a``;
+  ``nvcc -gencode arch=compute_90a,code=sm_90a`` (``source_dir`` names
+  another directory, for a checkout's test kernels outside the package);
 - ``load_host_library(name)``: the host C++ source ``csrc/<name>.cpp``
   (the native I/O engine), built with ``g++ -O2 -fPIC -std=c++17 -shared``.
 
@@ -59,9 +60,11 @@ def find_gxx() -> "str | None":
     return shutil.which("g++")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first call."""
-    return _load(name, f"{name}.cu", find_nvcc, NVCC_FLAGS)
+def load_library(name: str, source_dir: str = CSRC_DIR) -> ctypes.CDLL:
+    """The loaded library of <source_dir>/<name>.cu (csrc/ by default),
+    built on first call."""
+    return _load(name, os.path.join(source_dir, f"{name}.cu"), find_nvcc,
+                 NVCC_FLAGS)
 
 
 def load_host_library(name: str) -> ctypes.CDLL:
@@ -73,20 +76,20 @@ def load_host_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"g++ not found; csrc/{name}.cpp is built "
                                f"from source at first use")
         return path
-    return _load(name, f"{name}.cpp", gxx, GXX_FLAGS)
+    return _load(name, os.path.join(CSRC_DIR, f"{name}.cpp"), gxx,
+                 GXX_FLAGS)
 
 
-def _load(name: str, source: str, find_compiler, flags) -> ctypes.CDLL:
+def _load(name: str, src: str, find_compiler, flags) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_build(name, source, find_compiler(), flags))
+            lib = ctypes.CDLL(_build(name, src, find_compiler(), flags))
             _libs[name] = lib
         return lib
 
 
-def _build(name: str, source: str, compiler: str, flags) -> str:
-    src = os.path.join(CSRC_DIR, source)
+def _build(name: str, src: str, compiler: str, flags) -> str:
     with open(src, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join((os.path.basename(compiler),

@@ -4,11 +4,14 @@ Reference: elbencho_tpu/ops/fill.py, where these are jitted ``jnp`` ops
 (not Pallas kernels) that replace upstream elbencho's cuRAND buffer fill:
 blocks that will be written to storage originate in device memory and are
 copied device->host into the I/O buffer. Here they are plain torch ops on
-the given device.
+the given device; ``fill_verify_pattern_host`` writes the same pattern
+on the host (phases without a device, and host staging after a lost
+GPU).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +41,18 @@ def random_block_u32(generator: torch.Generator, num_words: int,
     return torch.randint(-(1 << 31), 1 << 31, (num_words,),
                          dtype=torch.int32, generator=generator,
                          device=device)
+
+
+def fill_verify_pattern_host(buf: memoryview, offset: int, length: int,
+                             salt: int) -> None:
+    """Each 8-byte-aligned word of ``buf[:length]`` = (file offset of the
+    word + salt), a trailing partial word zero (reference:
+    preWriteIntegrityCheckFillBuf, LocalWorker.cpp:2124)."""
+    n_words = length // 8
+    arr = np.frombuffer(buf[:n_words * 8], dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        arr[:] = (np.arange(n_words, dtype=np.uint64) * np.uint64(8)
+                  + np.uint64(offset) + np.uint64(salt))
+    tail = length - n_words * 8
+    if tail:
+        buf[n_words * 8:length] = bytes(tail)

@@ -5,8 +5,10 @@ streaming ring of the fused ``--gpustream`` loop (``NativeStream``) and
 the classic block loop of phases without a device (``run_block_loop``).
 The engine's source is the port's own copy, ``csrc/ioengine.cpp`` (ABI
 11), built with g++ at first use into ``_build/`` by
-``ops/cuda_build.load_host_library``. The net, mmap, per-file and
-registered-pool entry points are later slices.
+``ops/cuda_build.load_host_library``. The ring's per-op deadline and
+its test-only fault injection (``set_timeout``, ``set_fault``) serve
+``--iotimeout`` and the ``ELBENCHO_TPU_IO_FAULT`` knob. The net, mmap,
+per-file and registered-pool entry points are later slices.
 """
 
 from __future__ import annotations
@@ -28,6 +30,27 @@ ENGINE_NAMES = {code: name for name, code in ENGINE_CODES.items()}
 EXPECTED_ABI = 11
 
 _EILSEQ = errno_mod.EILSEQ  # engine's verify-mismatch return code
+
+#: ioengine_stream_set_fault kinds (csrc STREAM_FAULT_*; test only: the
+#: configuration refuses the env knob outside a test harness)
+STREAM_FAULT_KINDS = {"eio": 1, "short": 2, "hang": 3}
+
+
+def parse_fault_spec(spec: str) -> "tuple[int, int, int]":
+    """Parse the ELBENCHO_TPU_IO_FAULT test knob: "kind:every_n[:seed]"
+    (kind in eio|short|hang) -> (seed, every_n, kind_code). Raises
+    ValueError on a malformed spec, so a typo fails in the harness
+    instead of injecting nothing."""
+    parts = spec.split(":")
+    if len(parts) not in (2, 3) or parts[0] not in STREAM_FAULT_KINDS:
+        raise ValueError(
+            f"malformed ELBENCHO_TPU_IO_FAULT {spec!r} (want "
+            f"'eio|short|hang:EVERY_N[:SEED]')")
+    every_n = int(parts[1])
+    seed = int(parts[2]) if len(parts) == 3 else 0
+    if every_n <= 0:
+        raise ValueError("ELBENCHO_TPU_IO_FAULT every_n must be > 0")
+    return seed, every_n, STREAM_FAULT_KINDS[parts[0]]
 
 _lock = threading.Lock()
 _engine = None
@@ -147,6 +170,28 @@ class NativeStream:
     def inflight(self) -> int:
         return self._lib.ioengine_stream_inflight(self._handle)
 
+    def set_timeout(self, timeout_usec: int) -> None:
+        """--iotimeout: per-op deadline. Ops older than this at reap time
+        are cancelled and surface as res == -ETIMEDOUT with their slot
+        re-armed (0 disarms)."""
+        ret = self._lib.ioengine_stream_set_timeout(self._handle,
+                                                    max(timeout_usec, 0))
+        if ret < 0:
+            raise NativeStreamError(-ret, "stream set_timeout")
+
+    def set_fault(self, seed: int, every_n: int, kind: int) -> None:
+        """Deterministic fault injection (test only; STREAM_FAULT_KINDS).
+        Op k (by submit order) is faulted when (k+seed) % every_n == 0.
+        A hung op is never submitted to the kernel, so the hang behaves
+        alike on io_uring and kernel AIO."""
+        ret = self._lib.ioengine_stream_set_fault(self._handle, seed,
+                                                  every_n, kind)
+        if ret < 0:
+            raise NativeStreamError(-ret, "stream set_fault")
+
+    def set_fault_from_spec(self, spec: str) -> None:
+        self.set_fault(*parse_fault_spec(spec))
+
     def cancel(self, slot: int) -> None:
         """Request cancellation of the slot's in-flight op; its completion
         surfaces via reap (-ECANCELED, or the real result if the op beat
@@ -257,6 +302,12 @@ class _NativeEngine:
         lib.ioengine_stream_cancel.restype = ctypes.c_int
         lib.ioengine_stream_cancel.argtypes = [ctypes.c_void_p,
                                                ctypes.c_uint32]
+        lib.ioengine_stream_set_timeout.restype = ctypes.c_int
+        lib.ioengine_stream_set_timeout.argtypes = [ctypes.c_void_p,
+                                                    ctypes.c_uint64]
+        lib.ioengine_stream_set_fault.restype = ctypes.c_int
+        lib.ioengine_stream_set_fault.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int]
         lib.ioengine_stream_backend.restype = ctypes.c_int
         lib.ioengine_stream_backend.argtypes = []
         self._stream_backend = None  # kernel capability, probed once

@@ -51,7 +51,12 @@ class _Slab:
     def register(self) -> None:
         """Page-lock the mapping for DMA; raises if the driver refuses or
         torch does not then see the memory as pinned (a non_blocking copy
-        from memory that is not page-locked runs synchronously)."""
+        from memory that is not page-locked runs synchronously). Flags 0
+        serve every card of the host: each sees the slab as pinned and
+        copies from it asynchronously (chip_multigpu.py's
+        register_flags_probe), so a worker that fails over to another GPU
+        (--gpufallback chip) uses the same slots without registering them
+        again, which the driver refuses."""
         import torch
         err = torch.cuda.cudart().cudaHostRegister(
             self.base, len(self.mapping), 0)

@@ -63,7 +63,16 @@ class Worker:
         self.gpu_transfer_usec = 0    # copy wall time (submit -> done)
         self.gpu_dispatch_usec = 0    # host-side submit cost (the overhead
                                       # --gpubudget bounds)
+        self._reset_fault_counters()
         self._reset_slice_counters()
+
+    def _reset_fault_counters(self) -> None:
+        """--ioretries/--iotimeout counters, owned by the worker: the
+        retries happen in storage loops that run with or without a
+        device context."""
+        self.io_retries = 0       # per-op transient-error retries
+        self.io_retry_usec = 0    # total backoff slept for those retries
+        self.io_timeouts = 0      # ops cancelled by the --iotimeout deadline
 
     def _reset_slice_counters(self) -> None:
         """--gpuslice counters (workers/gpuslice.py), owned by the worker
@@ -98,6 +107,7 @@ class Worker:
         self.gpu_transfer_bytes = 0
         self.gpu_transfer_usec = 0
         self.gpu_dispatch_usec = 0
+        self._reset_fault_counters()
         self._reset_slice_counters()
 
     def create_stonewall_stats_if_triggered(self) -> None:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..toolkits import logger
+from .io_errors import ShortIOError
 from .shared import WorkerException, WorkerInterruptedException
 
 #: barrier poll interval; every wait slice re-checks interrupts
@@ -149,7 +150,9 @@ def _get_state(worker, n_workers: int, n_devices: int) -> _SliceState:
 # ----------------------------------------------------------------------
 
 class _PreadShardReader:
-    """Baseline reader: preadv into rotating staging slots."""
+    """Baseline reader: preadv into rotating staging slots, with per-op
+    --ioretries through the worker's retrier (the classifier of the
+    Python block loop)."""
 
     def __init__(self, worker, fds):
         self._worker = worker
@@ -161,13 +164,19 @@ class _PreadShardReader:
                    length: int) -> "tuple[np.ndarray, int]":
         slot = self._slots[self._next % len(self._slots)]
         self._next += 1
-        t0 = time.perf_counter_ns()
-        n = os.preadv(self._fds[fd_idx], [slot[:length]], offset)
-        if n != length:
-            raise WorkerException(
-                f"short read at offset {offset}: {n} != {length}")
-        return (np.frombuffer(slot[:length], dtype=np.uint32),
-                (time.perf_counter_ns() - t0) // 1000)
+
+        def one_op():
+            t0 = time.perf_counter_ns()
+            n = os.preadv(self._fds[fd_idx], [slot[:length]], offset)
+            if n != length:
+                raise ShortIOError(True, offset, n, length)
+            return (time.perf_counter_ns() - t0) // 1000
+
+        try:
+            lat_usec = self._worker._with_retries(one_op)
+        except ShortIOError as err:
+            raise WorkerException(str(err)) from None
+        return np.frombuffer(slot[:length], dtype=np.uint32), lat_usec
 
     def close(self) -> None:
         pass
@@ -191,6 +200,8 @@ class _StreamShardReader:
                 max(worker.cfg.block_size, 1))
         except NativeStreamError as err:
             raise _StreamUnavailable(str(err)) from err
+        if worker.cfg.io_timeout_secs:
+            self._stream.set_timeout(worker.cfg.io_timeout_secs * 1_000_000)
         self.backend_name = self._stream.backend_name
         self.fixed_buffers = self._stream.fixed_buffers
 
@@ -222,7 +233,7 @@ class _StreamShardReader:
                             f"slice shard read failed at offset {off}: "
                             f"{os.strerror(-res)}")
                     raise WorkerException(
-                        f"short read at offset {off}: {res} != {length}")
+                        str(ShortIOError(True, off, res, length)))
                 view = np.frombuffer(self._slots[slot][:length],
                                      dtype=np.uint32)
                 yield op_idx, view, lat_usec
@@ -257,6 +268,8 @@ def _stream_blocker(worker) -> "str | None":
             ENGINE_CODES[cfg.io_engine] != native.stream_backend():
         return (f"--ioengine {cfg.io_engine} pinned but the stream "
                 f"backend is {native.stream_backend_name()}")
+    if worker._io_retrier is not None:
+        return "--ioretries per-op retry (slice ring has no re-arm)"
     return None
 
 
@@ -266,13 +279,22 @@ def _stream_blocker(worker) -> "str | None":
 
 def run_gpu_slice_phase(worker) -> None:
     """Entry point from LocalWorker._dispatch_phase. Any error that is
-    not already a worker error (a CUDA error among them) ends the phase
-    as a WorkerException carrying its text; nothing fails over."""
+    not already a worker error ends the phase as a WorkerException
+    carrying its text; nothing fails over. A lost GPU says so: a stripe
+    is one program over every device of the mesh, and the per-worker
+    failover of --gpufallback cannot save it."""
+    from ..cuda.device import is_device_loss_error
     try:
         _run_slice_phase_inner(worker)
     except (WorkerInterruptedException, WorkerException):
         raise
     except Exception as err:  # noqa: BLE001 - reported with its text
+        if is_device_loss_error(err):
+            raise WorkerException(
+                f"GPU lost during the --gpuslice phase "
+                f"({type(err).__name__}: {err}); slice phases abort on "
+                f"GPU loss (--gpufallback does not apply to mesh "
+                f"phases)") from err
         raise WorkerException(
             f"--gpuslice phase failed ({type(err).__name__}: {err})") \
             from err

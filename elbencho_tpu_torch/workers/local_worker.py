@@ -16,8 +16,12 @@ counters), tried in this order:
    verify included, in the engine;
 3. the Python loop (``preadv``/``pwritev``).
 
-The engine's per-file loop, custom trees and the other storage back ends
-are later slices.
+Under ``--ioretries`` each loop retries a transient storage error
+(workers/io_errors.py): the Python loop and the ring per op, the native
+block loop per chunk; ``--iotimeout`` bounds a ring op. Every call into
+the device context goes through ``_gpu_guarded``, which hands a lost GPU
+to ``--gpufallback``. The engine's per-file loop, custom trees and the
+other storage back ends are later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
@@ -28,12 +32,14 @@ map to GPUs by ``rank % len(gpu_ids)`` and move blocks through a
 from __future__ import annotations
 
 import ctypes
+import errno
 import os
 import time
 from collections import deque
 
 import numpy as np
 
+from ..ops.fill import fill_verify_pattern_host
 from ..phases import GPU_PROFILE_PHASES, BenchPathType, BenchPhase
 from ..toolkits import logger
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
@@ -44,6 +50,7 @@ from ..utils.native import (ENGINE_CODES, NativeStreamError,
                             NativeVerifyError, _account_chunk,
                             get_native_engine)
 from .base import Worker
+from .io_errors import IoRetryBudgetExhausted, ShortIOError, make_io_retrier
 from .shared import WorkerException, WorkerInterruptedException
 
 MKFILE_MODE = 0o644  # reference: MKFILE_MODE, Common.h:96
@@ -66,6 +73,7 @@ class LocalWorker(Worker):
         self._stream_mode_logged = False  # once-per-phase fused-loop note
         self._stream_drain_failed = False  # aborted ring drain: leak bufs
         self._tolerate_note_logged = False  # once-per-phase partial note
+        self._io_retrier = None  # --ioretries (workers/io_errors.py)
         self.phase_pass = 0  # the --infloop pass of the current phase
 
     def reset_stats(self) -> None:
@@ -73,6 +81,8 @@ class LocalWorker(Worker):
         self._stream_mode_logged = False
         self._tolerate_note_logged = False
         self.phase_pass = 0
+        if self._io_retrier is not None:
+            self._io_retrier.reset()  # the backoff budget is per phase
         if self._gpu is not None:
             # path-audit counters are per-phase, like gpu_transfer_bytes
             self._gpu.reset_path_counters()
@@ -89,6 +99,8 @@ class LocalWorker(Worker):
             fill_algo=RandAlgoGoldenPrime(seed=self.rank + 1))
         self._io_bufs = self._staging_pool.views
         self._native = get_native_engine()  # build outside the timed phase
+        # None without --ioretries: the loops then take no retry branch
+        self._io_retrier = make_io_retrier(self)
         if cfg.gpu_ids:
             from ..cuda.device import CudaWorkerContext
             chip = cfg.gpu_ids[self.rank % len(cfg.gpu_ids)]
@@ -473,16 +485,25 @@ class LocalWorker(Worker):
                 fd, off = stripe[0][off // stripe[1]], off % stripe[1]
             if is_write:
                 self._pre_write_fill(buf, off, length)
-            t0 = time.perf_counter_ns()
-            if is_write:
-                n = os.pwritev(fd, [buf[:length]], off)
-            else:
-                n = os.preadv(fd, [buf[:length]], off)
-            if n != length:
-                raise WorkerException(
-                    f"short {'write' if is_write else 'read'} at offset "
-                    f"{off}: {n} != {length}")
-            lat_usec = (time.perf_counter_ns() - t0) // 1000
+
+            def one_op():
+                """One positional I/O attempt; a short transfer raises
+                the (transient) ShortIOError, so --ioretries covers it.
+                The latency is the successful attempt's, without the
+                backoff."""
+                t0 = time.perf_counter_ns()
+                if is_write:
+                    n = os.pwritev(fd, [buf[:length]], off)
+                else:
+                    n = os.preadv(fd, [buf[:length]], off)
+                if n != length:
+                    raise ShortIOError(not is_write, off, n, length)
+                return n, (time.perf_counter_ns() - t0) // 1000
+
+            try:
+                n, lat_usec = self._with_retries(one_op)
+            except ShortIOError as err:
+                raise WorkerException(str(err)) from None
             if not is_write:
                 self._post_read_actions(buf, off, length)
             self.iops_latency_histo.add_latency(lat_usec)
@@ -490,7 +511,9 @@ class LocalWorker(Worker):
             self.live_ops.num_iops_done += 1
             self._num_iops_submitted += 1
         if self._gpu is not None:
-            self._gpu.flush()  # drain pipelined transfers before phase end
+            # drain pipelined transfers before phase end (guarded: a copy
+            # in flight on a lost GPU surfaces here)
+            self._gpu_guarded(self._gpu.flush)
             self._sync_gpu_usec()
 
     def _log_stream_mode(self, msg: str) -> None:
@@ -586,9 +609,18 @@ class LocalWorker(Worker):
         hold = self._gpu.holdback_depth()
         free = deque(range(len(slot_addrs)))
         held: "deque[int]" = deque()
-        slot_op: "dict[int, tuple[int, int, int]]" = {}
+        slot_op: "dict[int, tuple[int, int, int, int, int]]" = {}
         chunk = self._native_chunk_blocks()
         try:
+            if cfg.io_timeout_secs:
+                # --iotimeout: a hung op surfaces as -ETIMEDOUT with its
+                # slot re-armed instead of wedging the reap loop
+                stream.set_timeout(cfg.io_timeout_secs * 1_000_000)
+            fault_spec = os.environ.get("ELBENCHO_TPU_IO_FAULT")
+            if fault_spec:
+                # test-only fault injection; the configuration refuses
+                # the knob outside a test harness
+                stream.set_fault_from_spec(fault_spec)
             while True:
                 batch = gen.next_batch(chunk)
                 if batch is None:
@@ -605,7 +637,9 @@ class LocalWorker(Worker):
                 logger.log_error(
                     f"worker {self.rank}: stream ring drain failed; "
                     f"keeping I/O buffers mapped until process exit")
-        self._gpu.flush()  # drain pipelined transfers before phase end
+        # drain pipelined transfers before phase end, guarded as every
+        # other call into the device
+        self._gpu_guarded(self._gpu.flush)
         self._sync_gpu_usec()
         return True
 
@@ -615,7 +649,9 @@ class LocalWorker(Worker):
         """One bounded chunk of the fused loop: submit every op (reaping
         for slots as needed), then drain to a chunk barrier so that the
         array-based accounting is exact; an interrupt books the
-        completed-prefix estimate before it propagates."""
+        completed-prefix estimate before it propagates. A failed op is
+        retried on its slot under --ioretries."""
+        cfg = self.cfg
         ctx = self._gpu
         offsets, lengths = batch
         n = len(offsets)
@@ -624,25 +660,66 @@ class LocalWorker(Worker):
         lat_arr = (ctypes.c_uint64 * n)()
         reaped_bytes = 0
 
+        def retry_or_raise(slot: int, op: tuple, err: OSError) -> None:
+            """--ioretries for a failed ring op: backoff, then submit the
+            same op on the same slot again (the slot still holds a
+            write's source; a read retries into it). Its attempts are
+            counted per op in slot_op: the ring interleaves many ops, and
+            the retrier's shared consecutive count would mix them up.
+            Raises the original error when retries are off, spent or do
+            not apply."""
+            i, fdi, r_off, length, attempts = op
+            retrier = self._io_retrier
+            if retrier is None or not retrier.should_retry(
+                    err, path=self._retry_path_hint(), attempt=attempts):
+                if isinstance(err, ShortIOError):
+                    raise WorkerException(str(err)) from None
+                raise err
+            try:
+                retrier.backoff(attempt=attempts)
+            except IoRetryBudgetExhausted:
+                raise err from None
+            slot_op[slot] = (i, fdi, r_off, length, attempts + 1)
+            stream.submit(slot, fdi, r_off, length, is_write)
+
         def reap_some(min_complete: int) -> None:
             nonlocal reaped_bytes
             events = stream.reap(min_complete, 1000, self._native_interrupt)
             if not events:
                 # timeout or interrupt: surface the interrupt, else go on
                 self.check_interruption_request(force=True)
+                if cfg.io_timeout_secs and slot_op:
+                    # kernel AIO's io_cancel is best effort: an op far
+                    # past its deadline with no completion in sight ends
+                    # the phase instead of spinning forever (the ring's
+                    # close() then keeps the slots mapped)
+                    age = stream.oldest_age_usec()
+                    limit = cfg.io_timeout_secs * 2_000_000 + 5_000_000
+                    if age > limit:
+                        raise WorkerException(
+                            f"storage op stuck for {age // 1_000_000}s — "
+                            f"past --iotimeout {cfg.io_timeout_secs}s and "
+                            f"uncancellable on the {stream.backend_name} "
+                            f"backend; aborting the phase")
                 return
             for slot, lat, res in events:
                 if not is_write:
                     # one completed read's copy and verify can take tens
                     # of ms: a stop takes effect before the next one
                     self.check_interruption_flag_only()
-                i, r_off, length = slot_op.pop(slot)
+                op = slot_op.pop(slot)
+                i, _fdi, r_off, length, _attempts = op
                 if res < 0:
-                    raise OSError(-res, os.strerror(-res))
+                    if -res == errno.ETIMEDOUT:
+                        # --iotimeout cancelled a hung op: transient, so
+                        # --ioretries may drive it again
+                        self.io_timeouts += 1
+                    retry_or_raise(slot, op, OSError(-res, os.strerror(-res)))
+                    continue
                 if res != length:
-                    raise WorkerException(
-                        f"short {'write' if is_write else 'read'} at "
-                        f"offset {r_off}: {res} != {length}")
+                    retry_or_raise(slot, op, ShortIOError(
+                        not is_write, r_off, res, length))
+                    continue
                 lat_arr[i] = lat
                 reaped_bytes += res
                 ctx.stream_fused_ops += 1
@@ -669,8 +746,9 @@ class LocalWorker(Worker):
                         # copy: after drain_to(len(held)-1) the ring's FIFO
                         # window covers only the newer held slots. Without
                         # this the holdback would cap the engine ring at
-                        # n_slots-(depth-1) ops under --gpudirect.
-                        ctx.drain_to(len(held) - 1)
+                        # n_slots-(depth-1) ops under --gpudirect. Guarded:
+                        # the wait is where a lost GPU may surface first.
+                        self._gpu_guarded(ctx.drain_to, len(held) - 1)
                         free.append(held.popleft())
                     else:
                         reap_some(1)
@@ -681,9 +759,9 @@ class LocalWorker(Worker):
                     # the block originates in device memory: D2H into the
                     # slot, complete before the write is submitted
                     self._pre_write_fill(self._io_bufs[slot], r_off, length)
-                slot_op[slot] = (i, r_off, length)
-                stream.submit(slot, int(fd_idx[i]) if fd_idx is not None
-                              else 0, r_off, length, is_write)
+                fdi = int(fd_idx[i]) if fd_idx is not None else 0
+                slot_op[slot] = (i, fdi, r_off, length, 0)
+                stream.submit(slot, fdi, r_off, length, is_write)
             while slot_op:  # chunk barrier: exact accounting below
                 reap_some(1)
         except WorkerInterruptedException:
@@ -712,12 +790,19 @@ class LocalWorker(Worker):
                 return
             self.check_interruption_request(force=True)
             fd_idx, offsets = self._stripe_offsets(batch[0], stripe_size)
-            try:
+
+            def call(fd_idx=fd_idx, offsets=offsets, lengths=batch[1]):
                 native.run_block_loop(
-                    fds, fd_idx, offsets, batch[1], is_write, buf_addr,
+                    fds, fd_idx, offsets, lengths, is_write, buf_addr,
                     cfg.io_depth, self, self._native_interrupt,
                     engine=cfg.io_engine,
                     verify_salt=cfg.integrity_check_salt)
+
+            try:
+                # --ioretries: a transient chunk failure runs the whole
+                # chunk again (a chunk books its counts only when it
+                # succeeds, so nothing counts twice)
+                self._with_retries(call)
             except NativeVerifyError as err:
                 file_off = int(offsets[err.block_idx]) + err.word_idx * 8
                 hint = (" (read of an unwritten/sparse region?)"
@@ -726,6 +811,73 @@ class LocalWorker(Worker):
                     f"data integrity check failed at file offset "
                     f"{file_off}: expected {err.want:#x}, "
                     f"got {err.got:#x}{hint}") from None
+
+    # ------------------------------------------------------------------
+    # data-plane fault tolerance (--ioretries, --iotimeout, --gpufallback;
+    # workers/io_errors.py and the failover of cuda/device.py)
+    # ------------------------------------------------------------------
+
+    def _retry_path_hint(self) -> str:
+        """The path the retry classifier's network-filesystem test looks
+        at (EIO is transient on NFS/FUSE/parallel file systems, permanent
+        on local media)."""
+        paths = self.cfg.paths
+        return paths[0] if paths else ""
+
+    def _with_retries(self, op):
+        """op() under --ioretries: one storage op, or one native engine
+        chunk."""
+        if self._io_retrier is None:
+            return op()
+        return self._io_retrier.run(op, path=self._retry_path_hint())
+
+    def _gpu_guarded(self, fn, *args, **kwargs):
+        """Run one call into the device context with --gpufallback: an
+        error that is not a lost GPU (a --gpubudget breach, a logic
+        error, an integrity error) propagates untouched."""
+        from ..cuda.device import is_device_loss_error
+        attempts = 0
+        while True:
+            try:
+                return fn(*args, **kwargs)
+            except WorkerInterruptedException:
+                raise
+            except Exception as err:  # noqa: BLE001 - classified below
+                if self._gpu is None or not is_device_loss_error(err):
+                    raise
+                attempts += 1
+                if attempts > len(self.cfg.gpu_ids) + 1:
+                    raise  # every GPU, and host staging, failed
+                self._gpu_handle_device_loss(err)
+
+    def _gpu_handle_device_loss(self, err: Exception) -> None:
+        """One lost GPU: poison it for every worker, then end the phase
+        (abort, the default), fail over to a surviving --gpuids GPU
+        (chip) or degrade to host-memory staging (host)."""
+        cfg = self.cfg
+        ctx = self._gpu
+        with self.shared.cond:
+            self.shared.poisoned_gpu_ids.add(ctx.chip_id)
+        if cfg.gpu_fallback == "abort":
+            from ..cuda.device import GpuDeviceLostError
+            # the teardown then makes no call into the lost GPU
+            ctx._poison_device_state()
+            raise WorkerException(
+                str(GpuDeviceLostError(ctx.chip_id, err))) from err
+        cause = str(err).splitlines()[0] if str(err) else ""
+        logger.log_error(f"worker {self.rank}: GPU {ctx.chip_id} lost "
+                         f"mid-phase ({type(err).__name__}: {cause})")
+        if cfg.gpu_fallback == "chip":
+            with self.shared.cond:
+                survivors = [c for c in cfg.gpu_ids
+                             if c not in self.shared.poisoned_gpu_ids]
+            if survivors:
+                ctx.failover_to_chip(survivors[self.rank % len(survivors)])
+                return
+            logger.log_error(
+                "--gpufallback chip: no surviving --gpuids GPU left; "
+                "degrading to host-memory staging")
+        ctx.failover_to_host()
 
     def rotated_staging_buf(self) -> memoryview:
         """The staging slot serving the next op under the worker's
@@ -750,30 +902,17 @@ class LocalWorker(Worker):
             # block content originates in device memory and is copied
             # device->host into the write buffer (replaces cudaMemcpy D2H
             # pre-write, reference LocalWorker.cpp:2437-2490); with
-            # --verify the pattern itself is generated on the device
-            self._gpu.device_to_host(buf, length,
-                                     verify_salt=cfg.integrity_check_salt,
-                                     file_offset=offset)
+            # --verify the pattern itself is generated on the device.
+            # Guarded: a lost GPU here fails over under --gpufallback.
+            self._gpu_guarded(self._gpu.device_to_host, buf, length,
+                              verify_salt=cfg.integrity_check_salt,
+                              file_offset=offset)
             self._sync_gpu_usec()
             self.gpu_transfer_bytes += length
             return
         if cfg.integrity_check_salt:
-            self._fill_verify_pattern(buf, offset, length,
-                                      cfg.integrity_check_salt)
-
-    @staticmethod
-    def _fill_verify_pattern(buf: memoryview, offset: int, length: int,
-                             salt: int) -> None:
-        """Each 8-byte-aligned word = (file offset of word + salt)
-        (reference: preWriteIntegrityCheckFillBuf, LocalWorker.cpp:2124)."""
-        n_words = length // 8
-        arr = np.frombuffer(buf[:n_words * 8], dtype=np.uint64)
-        with np.errstate(over="ignore"):
-            arr[:] = (np.arange(n_words, dtype=np.uint64) * np.uint64(8)
-                      + np.uint64(offset) + np.uint64(salt))
-        tail = length - n_words * 8
-        if tail:
-            buf[n_words * 8:length] = bytes(tail)
+            fill_verify_pattern_host(buf, offset, length,
+                                     cfg.integrity_check_salt)
 
     def _verify_read_buf(self, buf: memoryview, offset: int,
                          length: int) -> None:
@@ -800,14 +939,18 @@ class LocalWorker(Worker):
         cfg = self.cfg
         if self._gpu is not None:
             # host->device copy of the read block (replaces cudaMemcpy H2D
-            # post-read / cuFile read, reference LocalWorker.cpp:2633-2749)
-            self._gpu.host_to_device(buf, length,
-                                     verify_salt=cfg.integrity_check_salt
-                                     if cfg.do_gpu_verify else 0,
-                                     file_offset=offset)
+            # post-read / cuFile read, reference LocalWorker.cpp:2633-2749),
+            # guarded for --gpufallback
+            self._gpu_guarded(self._gpu.host_to_device, buf, length,
+                              verify_salt=cfg.integrity_check_salt
+                              if cfg.do_gpu_verify else 0,
+                              file_offset=offset)
             self._sync_gpu_usec()
             self.gpu_transfer_bytes += length
-            if cfg.do_gpu_verify and cfg.integrity_check_salt:
+            # a failover to host staging clears verify_on_device: the
+            # block is then verified on the host below
+            if cfg.do_gpu_verify and cfg.integrity_check_salt \
+                    and self._gpu.verify_on_device:
                 return  # verified on the device by the CUDA kernel
         if cfg.integrity_check_salt:
             self._verify_read_buf(buf, offset, length)

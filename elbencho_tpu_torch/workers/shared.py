@@ -3,9 +3,9 @@
 Reference: elbencho_tpu/workers/shared.py (source/workers/
 WorkersSharedData.{h,cpp}): one mutex+condvar, the current bench phase,
 the bench UUID acting as the phase-start signal, done counters, the phase
-start timestamp, CPU-util snapshots, the interrupt and time-limit flags
-and the partial-dataset latch. Also the worker exception types
-(source/workers/WorkerException.h).
+start timestamp, CPU-util snapshots, the interrupt and time-limit flags,
+the partial-dataset latch and the GPUs lost to --gpufallback. Also the
+worker exception types (source/workers/WorkerException.h).
 """
 
 from __future__ import annotations
@@ -42,6 +42,10 @@ class WorkersSharedData:
         # delete phases then tolerate missing entries (a partial dataset
         # is expected after an aborted write)
         self.partial_dataset = False
+        # --gpufallback: GPUs a worker declared lost; a lost GPU stays
+        # lost for the run, and sibling workers skip it when they pick a
+        # failover target
+        self.poisoned_gpu_ids: "set[int]" = set()
         # two meters, both baselined at the phase start, as upstream's
         # cpuUtilFirstDone/cpuUtilLastDone: one meter read again at the
         # last done would cover only the time since the first done
