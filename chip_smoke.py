@@ -148,7 +148,21 @@ without printing a result otherwise. In order it:
    as a finding), and a fresh read here that verifies its file; prints
    each run's rate beside the clean one, retries, timeouts, the time
    from the loss to the first host-staged copy and the rate after it;
-15. prints the kernel line {"kernels": [...]} and, last, the result line
+15. mixed and rate-shaped traffic (rwmix_pass), after 14 and before 7, on
+   the main path's file at -t 2 -b 16M --iodepth 4: (a) -w --rwmixpct 30
+   --verify 7 --gpuverify through the fused ring and the Python loop,
+   staged and --gpudirect, each with the rule's 116 reads and 140 writes,
+   116 kernel launches and a whole-file --gpuverify read after it; (b)
+   -w --rwmixthr 1 (the reader's 2 GiB booked as rwmix reads, the
+   writer's as BytesLast, both in TpuHbmBytes), and with --rwmixthrpct 50
+   through the Python loop; (c) --limitread/--limitwrite 512M with and
+   without a device (at least 3 s, at most 4/3 of the limits' rate), and
+   --limitread 256M cut by --timelimit 3 within the run-control bound;
+   (d) --blockvarpct 50 at 1 GiB without a device (every block's first
+   half new, the second halves repeating) and with one (the bytes of the
+   write without it); prints each run's loop, MiB/s, rwmix read MiB/s
+   and the D2H copies served by the speculation and issued fresh;
+16. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -671,11 +685,12 @@ def device_ops(rec: dict) -> int:
 
 
 def run_pass(name: str, args: "list[str]", json_path: str,
-             want_phases: "list[str]",
-             live: bool = False) -> "tuple[list[dict], int]":
+             want_phases: "list[str]", live: bool = False,
+             on_device: bool = True) -> "tuple[list[dict], int]":
     """One CLI run with the kernel's launch count zeroed just before it and
     read just after it; fails unless it exits 0 with `want_phases` on a
-    CUDA device. Returns (records, fingerprint launches)."""
+    CUDA device (or, not `on_device`, on none). Returns (records,
+    fingerprint launches)."""
     from elbencho_tpu_torch.ops.verify import fingerprint_u32
     fingerprint_u32.launches.reset()
     t0 = time.monotonic()
@@ -690,8 +705,10 @@ def run_pass(name: str, args: "list[str]", json_path: str,
     print(f"pass '{name}': {secs:.1f} s, fingerprint launches {launches}")
     for rec in recs:
         ops = max(device_ops(rec), 1)
-        if "cuda" not in rec["Device"]:
+        if on_device and "cuda" not in rec["Device"]:
             fail(f"pass '{name}' {rec['Phase']} did not run on a CUDA device")
+        if not on_device and (rec["Device"] or rec["TpuHbmBytes"]):
+            fail(f"pass '{name}' {rec['Phase']} ran on {rec['Device']}")
         print(f"  {rec['Phase']:<8} {rec['EntriesLast']} entries, "
               f"{rec['EntriesPerSecLast']} entries/s, {rec['BytesLast']} "
               f"bytes, storage {rec['MiBPerSecLast']} MiB/s, device "
@@ -2287,6 +2304,242 @@ def signal_children(work: str) -> int:
     return launches
 
 
+RWMIX_PCT = 30                 # --rwmixpct of (a)
+RWMIX_LIMIT = 512 << 20        # --limitread/--limitwrite of (c)
+RWMIX_CUT_LIMIT = 256 << 20    # --limitread of the time-limited read
+RWMIX_CUT_S = 3                # its --timelimit
+RWMIX_VAR_SIZE = 1 << 30       # -s 1g of (d)
+
+
+def rule_split(ranks: int, ops: int, pct: int) -> "tuple[int, int, int]":
+    """(reads, writes, write runs) of a --rwmixpct write phase: op i of
+    rank r reads when (r + i) % 100 < pct. A write run is a write whose
+    previous op of its worker was a read, or its worker's first op: the
+    one D2H copy of a run that the speculation cannot have served."""
+    reads = runs = 0
+    for rank in range(ranks):
+        prev_read = True
+        for i in range(ops):
+            rd = (rank + i) % 100 < pct
+            reads += rd
+            runs += prev_read and not rd
+            prev_read = rd
+    return reads, ranks * ops - reads, runs
+
+
+def speculation(rec: dict) -> str:
+    """The D2H copies of a WRITE record served by the speculative
+    verify-pattern ring and those issued fresh."""
+    d2h = rec["TpuD2hStagedOps"] + rec["TpuD2hDirectOps"]
+    hits = rec["TpuD2hPrefetchHits"]
+    return (f"D2H {d2h}: {hits} served by the speculation, {d2h - hits} "
+            f"fresh, {rec['TpuD2hPrefetchMisses']} misses")
+
+
+def rwmix_rates(rec: dict, ops: int, nbytes: int) -> "tuple[float, float]":
+    """RWMixReadIOPSLast and RWMixReadMiBPerSecLast of `ops` reads of
+    `nbytes`, computed as the statistics module computes them."""
+    last_s = rec["ElapsedUSecLast"] / 1e6
+    return round(ops / last_s, 2), round(nbytes / last_s / (1 << 20), 2)
+
+
+def half_digests(path: str, block: int) -> "tuple[int, int, int]":
+    """(blocks, distinct first halves, distinct second halves)."""
+    import hashlib
+    first, second = set(), set()
+    n = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(block):
+            n += 1
+            first.add(hashlib.sha1(chunk[:block // 2]).digest())
+            second.add(hashlib.sha1(chunk[block // 2:]).digest())
+    return n, len(first), len(second)
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    with open(path, "rb") as f:
+        while chunk := f.read(MAIN_BLOCK):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def rwmix_pass(work: str) -> int:
+    """Mixed and rate-shaped traffic on the card at the main path's width
+    (-t 2 -b 16M --iodepth 4 --gpuids 0) on its 4 GiB file, which holds
+    the verify pattern of salt 7. Returns the fingerprint launches.
+
+    (a) -w --rwmixpct 30 --verify 7 --gpuverify through the fused ring
+        and the Python loop, staged and --gpudirect: reads and writes of
+        one worker through one device context, the reads' H2D copies and
+        kernel launches interleaved with the writes' speculative D2H
+        copies. Each run: exit 0, the rule's 116 rwmix reads and 140
+        writes (2,348,810,240 bytes), the whole file in TpuHbmBytes, 256
+        ring ops or none, one launch per read; then a --gpuverify read
+        of the whole file (256 launches), so that no stale pattern was
+        written.
+    (b) -w --rwmixthr 1: rank 0 reads its 2 GiB, booked as rwmix reads,
+        rank 1 writes its 2 GiB (BytesLast), both in TpuHbmBytes; then
+        with --rwmixthrpct 50, where the balancer sends the phase to the
+        Python loop with a NOTE naming it.
+    (c) -r --limitread 512M and -w --limitwrite 512M of 2 GiB a worker,
+        with the device (the Python loop, its NOTE naming the limits)
+        and without (the engine's block loop): four windows, so at least
+        3 s and at most 2 x 512 x 4/3 MiB/s; then -r --limitread 256M
+        --timelimit 3, both loops, within RUN_SLACK_S of the limit.
+    (d) -w --blockvarpct 50 -s 1g without a device: every block's first
+        half differs from every other's, the second halves (the staging
+        slot's fill) repeat; with the device the file is byte-equal to
+        the same write without --blockvarpct (the fill pool is the
+        source)."""
+    t_start = time.monotonic()
+    path = os.path.join(work, "smoke.bin")
+    json_path = os.path.join(work, "rwmix.json")
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4"]
+    dev = ["--gpuids", "0"]
+    verify = ["--verify", "7", "--gpuverify"]
+    reads, writes, runs = rule_split(2, MAIN_BLOCKS // 2, RWMIX_PCT)
+    total = 0
+    print(f"rwmix pass (a): -w --rwmixpct {RWMIX_PCT} --verify 7 "
+          f"--gpuverify, {reads} reads and {writes} writes by the rule")
+    for loop, flags in (("staged, fused ring", ["--gpustream", "on"]),
+                        ("staged, Python loop", ["--gpustream", "off"]),
+                        ("--gpudirect, fused ring",
+                         ["--gpudirect", "--gpustream", "on"]),
+                        ("--gpudirect, Python loop",
+                         ["--gpudirect", "--gpustream", "off"])):
+        fused = "fused" in loop
+        name = f"rwmix {RWMIX_PCT}% write, {loop}"
+        (rec,), launches = run_pass(
+            name, ["-w", *common, *dev, *verify, "--rwmixpct",
+                   str(RWMIX_PCT), *flags, path], json_path, ["WRITE"])
+        total += launches
+        expect(name, rec, BytesLast=writes * MAIN_BLOCK, ops=writes,
+               device_ops=writes, TpuHbmBytes=MAIN_SIZE,
+               TpuStreamFusedOps=MAIN_BLOCKS if fused else 0,
+               TpuD2hPrefetchHits=writes - runs, TpuD2hPrefetchMisses=0)
+        want = rwmix_rates(rec, reads, reads * MAIN_BLOCK)
+        got = (rec["RWMixReadIOPSLast"], rec["RWMixReadMiBPerSecLast"])
+        if got != want:
+            fail(f"pass '{name}': rwmix read rates {got}, want {want} "
+                 f"({reads} reads of {reads * MAIN_BLOCK} bytes)")
+        if launches != reads:
+            fail(f"pass '{name}': {launches} fingerprint launches, want "
+                 f"{reads} (one per rwmix read)")
+        print(f"  {name}: {loop_taken(rec)}, write {rec['MiBPerSecLast']} "
+              f"MiB/s, rwmix read {rec['RWMixReadMiBPerSecLast']} MiB/s, "
+              f"device {rec['TpuHbmMiBPerSec']} MiB/s, {speculation(rec)}, "
+              f"{launches} launches")
+        (check,), launches = run_pass(
+            f"--gpuverify read after '{name}'",
+            ["-r", *common, *dev, *verify, path], json_path, ["READ"])
+        total += launches
+        expect("--gpuverify read", check, BytesLast=MAIN_SIZE)
+        if launches != MAIN_BLOCKS:
+            fail(f"the --gpuverify read after '{name}' launched the kernel "
+                 f"{launches} times, want {MAIN_BLOCKS}")
+
+    half = MAIN_SIZE // 2
+    print("rwmix pass (b): -w --rwmixthr 1")
+    for name, flags in (("--rwmixthr 1", []),
+                        ("--rwmixthr 1 --rwmixthrpct 50",
+                         ["--rwmixthrpct", "50"])):
+        out = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(out):
+            (rec,), launches = run_pass(
+                name, ["-w", *common, *dev, "--rwmixthr", "1", *flags,
+                       path], json_path, ["WRITE"])
+        expect(name, rec, BytesLast=half, ops=MAIN_BLOCKS // 2,
+               TpuHbmBytes=MAIN_SIZE)
+        want = rwmix_rates(rec, MAIN_BLOCKS // 2, half)
+        got = (rec["RWMixReadIOPSLast"], rec["RWMixReadMiBPerSecLast"])
+        if got != want:
+            fail(f"pass '{name}': rwmix read rates {got}, want {want} (the "
+                 f"reader's {half} bytes)")
+        note = ("NOTE: fused GPU stream ineligible (--rwmixthr byte-ratio "
+                "balancer); using the Python loop")
+        if flags and (note not in out.text.getvalue()
+                      or rec["TpuStreamFusedOps"]):
+            fail(f"pass '{name}' did not take the Python loop with the "
+                 f"balancer's NOTE")
+        if not flags and rec["TpuStreamFusedOps"] != MAIN_BLOCKS:
+            fail(f"pass '{name}': {rec['TpuStreamFusedOps']} ring ops, want "
+                 f"{MAIN_BLOCKS}")
+        print(f"  {name}: {loop_taken(rec)}, write {rec['MiBPerSecLast']} "
+              f"MiB/s, rwmix read {rec['RWMixReadMiBPerSecLast']} MiB/s, "
+              f"device {rec['TpuHbmMiBPerSec']} MiB/s")
+
+    limit_mib = RWMIX_LIMIT >> 20
+    max_rate = 2 * limit_mib * 4 / 3
+    print(f"rwmix pass (c): --limitread/--limitwrite {limit_mib}M, 2 GiB a "
+          f"worker (four windows)")
+    for op, flag in (("-r", "--limitread"), ("-w", "--limitwrite")):
+        for loop, extra in (("Python loop", dev), ("native block loop", [])):
+            name = f"{op} {flag} {limit_mib}M, {loop}"
+            out = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(out):
+                (rec,), _ = run_pass(
+                    name, [op, *common, *extra, flag, f"{limit_mib}M", path],
+                    json_path, ["READ" if op == "-r" else "WRITE"],
+                    on_device=bool(extra))
+            expect(name, rec, BytesLast=MAIN_SIZE, ops=MAIN_BLOCKS,
+                   TpuStreamFusedOps=0)
+            secs = rec["ElapsedUSecLast"] / 1e6
+            if secs < 3 or rec["MiBPerSecLast"] > max_rate:
+                fail(f"pass '{name}': {secs:.3f} s at "
+                     f"{rec['MiBPerSecLast']} MiB/s; want at least 3 s and "
+                     f"at most {max_rate:.2f} MiB/s")
+            note = ("NOTE: fused GPU stream ineligible (per-op rate "
+                    "limits); using the Python loop")
+            if extra and note not in out.text.getvalue():
+                fail(f"pass '{name}' printed no NOTE naming the limits")
+            print(f"  {name}: {rec['MiBPerSecLast']} MiB/s against "
+                  f"{2 * limit_mib} MiB/s of limits "
+                  f"({rec['MiBPerSecLast'] / (2 * limit_mib):.3f}x), "
+                  f"{secs:.3f} s")
+    cut_mib = RWMIX_CUT_LIMIT >> 20
+    for loop, extra in (("Python loop", dev), ("native block loop", [])):
+        name = f"-r --limitread {cut_mib}M --timelimit {RWMIX_CUT_S}, {loop}"
+        (rec,), _ = run_pass(
+            name, ["-r", *common, *extra, "--limitread", f"{cut_mib}M",
+                   "--timelimit", str(RWMIX_CUT_S), path],
+            json_path, ["READ"], on_device=bool(extra))
+        over = rec["ElapsedUSecLast"] / 1e6 - RWMIX_CUT_S
+        if over > RUN_SLACK_S or rec["BytesLast"] % MAIN_BLOCK:
+            fail(f"pass '{name}': overran its limit by {over:.3f} s "
+                 f"(bound {RUN_SLACK_S} s), or booked a part block")
+        print(f"  {name}: overrun {over:.3f} s, {rec['MiBPerSecLast']} MiB/s "
+              f"against {2 * cut_mib} MiB/s of limits")
+
+    var_path = os.path.join(work, "var.bin")
+    var = ["-w", *common, "-s", f"{RWMIX_VAR_SIZE >> 20}M"]
+    var_blocks = RWMIX_VAR_SIZE // MAIN_BLOCK
+    print("rwmix pass (d): --blockvarpct 50, 1 GiB")
+    run_pass("--blockvarpct 50, no device",
+             [*var, "--blockvarpct", "50", var_path], json_path, ["WRITE"],
+             on_device=False)
+    n, firsts, seconds = half_digests(var_path, MAIN_BLOCK)
+    if n != var_blocks or firsts != n or seconds >= n:
+        fail(f"--blockvarpct 50: {n} blocks, {firsts} distinct first halves "
+             f"(want {n}), {seconds} distinct second halves (want fewer)")
+    print(f"  no device: {n} blocks, {firsts} distinct first halves, "
+          f"{seconds} distinct second halves")
+    digests = []
+    for flags in ([], ["--blockvarpct", "50"]):
+        run_pass(f"-w {' '.join(flags) or 'plain'}, device",
+                 [*var, *dev, *flags, var_path], json_path, ["WRITE"])
+        digests.append(file_digest(var_path))
+    if digests[0] != digests[1]:
+        fail("--blockvarpct 50 with a device changed the written bytes")
+    print(f"  with the device: the file equals the plain write's "
+          f"(sha1 {digests[0][:16]}...)")
+    os.unlink(var_path)
+    print(f"rwmix pass: {time.monotonic() - t_start:.1f} s, {total} "
+          f"fingerprint launches")
+    return total
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -2386,6 +2639,7 @@ def main() -> int:
         launches += output_pass(work)
         launches += live_pass(work)
         launches += fault_pass(work)
+        launches += rwmix_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

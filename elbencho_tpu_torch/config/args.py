@@ -25,8 +25,11 @@ flags (``--nolive``, ``--liveint``, ``--live1``, ``--live1n``,
 the data-plane fault tolerance flags (``--ioretries``,
 ``--ioretrybudget``, ``--iotimeout``, ``--gpufallback``; the test-only
 ``ELBENCHO_TPU_IO_FAULT`` knob is refused outside
-``ELBENCHO_TPU_TESTING=1``). Custom trees, the other storage back ends
-and the remaining flags are later slices (ROADMAP.md queue A).
+``ELBENCHO_TPU_TESTING=1``) and the mixed and rate-shaped traffic flags
+(``--rwmixpct``, ``--rwmixthr``, ``--rwmixthrpct``, ``--limitread``,
+``--limitwrite``, ``--blockvarpct``, ``--blockvaralgo``). Custom trees,
+the other storage back ends and the remaining flags are later slices
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -94,6 +97,22 @@ FLAG_DEFS = [
      "All threads share the same dirs (d0..dN) instead of per-rank dirs"),
     ("verify", None, "integrity_check_salt", "int", 0,
      "Enable data integrity check with given salt (!=0)"),
+    ("blockvarpct", None, "block_variance_pct", "int", 0,
+     "Percentage of each block to refill with random data between writes"),
+    ("blockvaralgo", None, "block_variance_algo", "str", "fast",
+     "PRNG for block variance: strong|balanced_single|balanced|fast"),
+    # mixed reads and writes in the write phase
+    ("rwmixpct", None, "rwmix_read_pct", "int", 0,
+     "Percentage of reads in write phase (per-op modulo split)"),
+    ("rwmixthr", None, "num_rwmix_read_threads", "int", 0,
+     "Number of threads of the write phase that do reads instead"),
+    ("rwmixthrpct", None, "rwmix_thr_read_pct", "int", 0,
+     "Target read byte percentage for rwmixthr balancing"),
+    # rate limiting
+    ("limitread", None, "limit_read_bps", "size", 0,
+     "Per-thread read bandwidth limit (bytes/sec, unit suffixes allowed)"),
+    ("limitwrite", None, "limit_write_bps", "size", 0,
+     "Per-thread write bandwidth limit (bytes/sec)"),
     ("no0usecerr", None, "ignore_0usec_errors", "bool", False,
      "Do not warn about operations completing in 0 microseconds"),
     # result output at the end of each phase
@@ -563,6 +582,27 @@ class BenchConfig(BenchConfigBase):
                 parse_fault_spec(os.environ["ELBENCHO_TPU_IO_FAULT"])
             except ValueError as err:
                 raise ConfigError(str(err)) from None
+        if self.num_rwmix_read_threads and not self.run_create_files:
+            raise ConfigError("--rwmixthr requires the write phase (-w)")
+        if self.rwmix_read_pct and not (0 <= self.rwmix_read_pct <= 100):
+            raise ConfigError("--rwmixpct must be in 0..100")
+        if self.block_variance_pct and \
+                not (0 <= self.block_variance_pct <= 100):
+            raise ConfigError("--blockvarpct must be in 0..100")
+        if self.num_rwmix_read_threads >= max(1, self.num_threads) \
+                and self.num_rwmix_read_threads:
+            raise ConfigError("--rwmixthr must be < number of threads")
+        if self.integrity_check_salt and self.block_variance_pct:
+            raise ConfigError("--verify and --blockvarpct are incompatible")
+        if self.rwmix_thr_read_pct and not 0 < self.rwmix_thr_read_pct < 100:
+            # the JAX package raises this text from the balancer's
+            # constructor when the workers are set up
+            raise ConfigError("read percentage must be in (0, 100)")
+        from ..toolkits.random_algos import create_rand_algo
+        try:  # the JAX package fails at the first worker's prepare
+            create_rand_algo(self.block_variance_algo, seed=0)
+        except ValueError as err:
+            raise ConfigError(str(err)) from None
         if self.gpu_batch_blocks > 1 and self.do_gpu_verify:
             # the aggregated copy skips the per-block on-device check
             raise ConfigError(

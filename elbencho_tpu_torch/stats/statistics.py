@@ -22,8 +22,7 @@ import os
 import sys
 import time
 
-from ..cuda.device import (PATH_AUDIT_COUNTERS, PATH_AUDIT_WORKER_COUNTERS,
-                           sum_path_audit_counters)
+from ..cuda.device import PATH_AUDIT_KEYS, sum_path_audit_counters
 from ..phases import BenchPhase, phase_entry_type, phase_name
 from ..workers.manager import WAIT_WAKEUP_SECS
 from .cpu_util import CPUUtil
@@ -35,11 +34,14 @@ LIVE_MIN_INTERVAL_MS = 50
 
 def merge_live_latency_histos(workers) -> "tuple[LatencyHistogram, ...]":
     """(io, entries) histograms merged over a worker list for the
-    fullscreen view's latency footer."""
+    fullscreen view's latency footer (the rwmix reads fold into io: a
+    live view wants one op-latency distribution, not the result table's
+    split)."""
     io_histo = LatencyHistogram()
     ent_histo = LatencyHistogram()
     for w in workers:
         io_histo.merge(w.iops_latency_histo)
+        io_histo.merge(w.iops_latency_histo_rwmix)
         ent_histo.merge(w.entries_latency_histo)
     return io_histo, ent_histo
 
@@ -68,13 +70,23 @@ CSV_RESULT_COLUMNS = (
     "RWMixReadIOPSLast", "RWMixReadMiBPerSecLast",
     "Scenario", "ScenarioStep", "EpochRateMiBs")
 
-#: the CSV columns of features the port lacks (service hosts, rwmix,
+#: the CSV columns of features the port lacks (service hosts,
 #: scenarios), with what the JAX package writes when each is off; they
 #: are not in the port's JSON record
 CSV_FEATURE_OFF_COLUMNS = {
-    "NumHostsDegraded": 0, "RWMixReadIOPSLast": 0.0,
-    "RWMixReadMiBPerSecLast": 0.0, "Scenario": "", "ScenarioStep": "",
+    "NumHostsDegraded": 0, "Scenario": "", "ScenarioStep": "",
     "EpochRateMiBs": 0}
+
+
+def _counts() -> dict:
+    return {"entries": 0, "bytes": 0, "iops": 0}
+
+
+def _add_counts(totals: dict, ops) -> None:
+    """Add one LiveOps to an {entries, bytes, iops} dict."""
+    totals["entries"] += ops.num_entries_done
+    totals["bytes"] += ops.num_bytes_done
+    totals["iops"] += ops.num_iops_done
 
 
 class PhaseResults:
@@ -86,10 +98,14 @@ class PhaseResults:
         self.entry_type = "files"
         self.first_done_usec = 0
         self.last_done_usec = 0
-        self.stonewall = {"entries": 0, "bytes": 0, "iops": 0}
-        self.final = {"entries": 0, "bytes": 0, "iops": 0}
+        self.stonewall = _counts()
+        self.final = _counts()
+        # the reads of a write phase (--rwmixpct, --rwmixthr)
+        self.stonewall_rwmix = _counts()
+        self.final_rwmix = _counts()
         self.iops_histo = LatencyHistogram()
         self.entries_histo = LatencyHistogram()
+        self.iops_histo_rwmix = LatencyHistogram()
         self.cpu_stonewall = 0.0
         self.cpu_last_done = 0.0
         self.elapsed_usec_vec: "list[int]" = []
@@ -134,12 +150,20 @@ class Statistics:
 
     def _sum_live_ops(self) -> "tuple[int, int, int, int, list]":
         """(entries, bytes, iops, workers done, [(rank, LiveOps)]) from one
-        snapshot of each worker's counters, so that a row's per-worker
-        counters add up to its totals. The JAX package reads the running
-        counters again for the per-worker part of a --livejsonex row, and
-        a worker that booked an op in between made them disagree."""
-        per_worker = [(w.rank, w.live_ops.snapshot())
-                      for w in self.manager.workers]
+        snapshot of each worker's counters, the rwmix reads added, so
+        that a row's per-worker counters add up to its totals. The JAX
+        package reads the running counters again for the per-worker part
+        of a --livejsonex row, and without the rwmix reads, so that they
+        disagreed when a worker booked an op in between or read in a
+        write phase."""
+        per_worker = []
+        for w in self.manager.workers:
+            ops = w.live_ops.snapshot()
+            mixed = w.live_ops_rwmix_read
+            ops.num_entries_done += mixed.num_entries_done
+            ops.num_bytes_done += mixed.num_bytes_done
+            ops.num_iops_done += mixed.num_iops_done
+            per_worker.append((w.rank, ops))
         entries = sum(ops.num_entries_done for _rank, ops in per_worker)
         num_bytes = sum(ops.num_bytes_done for _rank, ops in per_worker)
         iops = sum(ops.num_iops_done for _rank, ops in per_worker)
@@ -453,14 +477,13 @@ class Statistics:
         res.num_workers = len(workers)
         for w in workers:
             res.elapsed_usec_vec.extend(w.elapsed_usec_vec)
-            res.stonewall["entries"] += w.stonewall_ops.num_entries_done
-            res.stonewall["bytes"] += w.stonewall_ops.num_bytes_done
-            res.stonewall["iops"] += w.stonewall_ops.num_iops_done
-            res.final["entries"] += w.live_ops.num_entries_done
-            res.final["bytes"] += w.live_ops.num_bytes_done
-            res.final["iops"] += w.live_ops.num_iops_done
+            _add_counts(res.stonewall, w.stonewall_ops)
+            _add_counts(res.final, w.live_ops)
+            _add_counts(res.stonewall_rwmix, w.stonewall_ops_rwmix_read)
+            _add_counts(res.final_rwmix, w.live_ops_rwmix_read)
             res.iops_histo.merge(w.iops_latency_histo)
             res.entries_histo.merge(w.entries_latency_histo)
+            res.iops_histo_rwmix.merge(w.iops_latency_histo_rwmix)
             res.tpu_bytes += w.gpu_transfer_bytes
             res.tpu_usec += w.gpu_transfer_usec
             res.tpu_dispatch_usec += w.gpu_dispatch_usec
@@ -538,6 +561,15 @@ class Statistics:
                 "", f"Total {unit}",
                 f"{res.stonewall['bytes'] / div:,.0f}",
                 f"{res.final['bytes'] / div:,.0f}"))
+        if res.final_rwmix["iops"]:
+            rows.append(self._row(
+                "", "Read IOPS (rwmix)",
+                f"{res.stonewall_rwmix['iops'] / first_s:,.0f}",
+                f"{res.final_rwmix['iops'] / last_s:,.0f}"))
+            rows.append(self._row(
+                "", f"Read {unit}/s (rwmix)",
+                f"{res.stonewall_rwmix['bytes'] / first_s / div:,.0f}",
+                f"{res.final_rwmix['bytes'] / last_s / div:,.0f}"))
         if res.tpu_bytes:
             rows.append(self._row("", f"Device {unit}/s", "-",
                                   f"{res.tpu_bytes / last_s / div:,.0f}"))
@@ -638,6 +670,9 @@ class Statistics:
                            for k, (b, u) in res.tpu_per_chip.items()},
             **res.tpu_path_counters,
             "Device": ", ".join(res.devices),
+            "RWMixReadIOPSLast": round(res.final_rwmix["iops"] / last_s, 2),
+            "RWMixReadMiBPerSecLast": round(
+                res.final_rwmix["bytes"] / last_s / mib, 2),
         }
 
     @classmethod
@@ -683,13 +718,15 @@ class Statistics:
 
     def _write_csv(self, rec: dict) -> None:
         """Append the phase's row (and the header to a new file): the
-        record's CSV columns, then the config labels."""
-        rec.pop("TpuPerChip")
-        rec.pop("Device")
-        for _attr, key in PATH_AUDIT_COUNTERS + PATH_AUDIT_WORKER_COUNTERS:
-            rec.pop(key)  # JSON-only, as in the JAX package
-        rec.update(CSV_FEATURE_OFF_COLUMNS)
-        assert tuple(rec) == CSV_RESULT_COLUMNS, "CSV schema drift"
+        record's CSV columns, then the config labels. TpuPerChip, Device
+        and the path-audit counters are JSON-only, as in the JAX
+        package."""
+        assert (set(rec) - {"TpuPerChip", "Device", *PATH_AUDIT_KEYS}
+                == set(CSV_RESULT_COLUMNS) - set(CSV_FEATURE_OFF_COLUMNS)), \
+            "CSV schema drift"
+        rec = {col: CSV_FEATURE_OFF_COLUMNS[col]
+               if col in CSV_FEATURE_OFF_COLUMNS else rec[col]
+               for col in CSV_RESULT_COLUMNS}
         labels = {} if self.cfg.no_csv_labels else self.cfg.config_labels()
         path = self.cfg.csv_file_path
         new_file = not os.path.exists(path) or os.path.getsize(path) == 0

@@ -86,20 +86,34 @@ def _as_ptr(values: np.ndarray, dtype, c_type):
     return ptr
 
 
-def _account_chunk(worker, lat_arr, n: int, bytes_done: int,
-                   total_bytes: int) -> None:
+def _account_chunk(worker, lat_arr, lengths: np.ndarray, n: int,
+                   bytes_done: int, total_bytes: int,
+                   op_is_read: "np.ndarray | None" = None) -> None:
     """Post-chunk accounting of the block loop and the fused stream: a
-    complete chunk books every latency and counter exactly; an
-    interrupted one, whose completions may be out of order, books the
-    done-prefix estimate and no latencies."""
+    complete chunk books every latency and counter exactly, split into
+    the rwmix-read counters where ``op_is_read`` (the per-op flags of a
+    --rwmixpct write phase) marks reads; an interrupted one, whose
+    completions may be out of order, books the done-prefix estimate and
+    no latencies, with the flags of that prefix splitting it."""
+    rd = op_is_read.astype(bool) if op_is_read is not None else None
     if bytes_done == total_bytes:
-        worker.iops_latency_histo.add_latencies_array(
-            np.frombuffer(lat_arr, dtype=np.uint64))
-        worker.live_ops.num_iops_done += n
+        lat = np.frombuffer(lat_arr, dtype=np.uint64)
+        done = n
+        if rd is not None:
+            worker.iops_latency_histo_rwmix.add_latencies_array(lat[rd])
+            lat = lat[~rd]
+        worker.iops_latency_histo.add_latencies_array(lat)
     else:
         avg_len = max(total_bytes // n, 1)
-        worker.live_ops.num_iops_done += min(n, bytes_done // avg_len)
-    worker.live_ops.num_bytes_done += bytes_done
+        done = min(n, bytes_done // avg_len)
+    read_ops = read_bytes = 0
+    if rd is not None and done:
+        read_ops = int(rd[:done].sum())
+        read_bytes = int(lengths[:done][rd[:done]].sum())
+        worker.live_ops_rwmix_read.num_iops_done += read_ops
+        worker.live_ops_rwmix_read.num_bytes_done += read_bytes
+    worker.live_ops.num_iops_done += done - read_ops
+    worker.live_ops.num_bytes_done += max(bytes_done - read_bytes, 0)
     worker._num_iops_submitted += n
     worker.create_stonewall_stats_if_triggered()
 
@@ -347,12 +361,21 @@ class _NativeEngine:
     def run_block_loop(self, fds: "list[int]", fd_idx, offsets: np.ndarray,
                        lengths: np.ndarray, is_write: bool, buf_addr: int,
                        iodepth: int, worker, interrupt_flag: ctypes.c_int,
-                       engine: str = "auto", verify_salt: int = 0) -> None:
+                       engine: str = "auto", verify_salt: int = 0,
+                       op_is_read: "np.ndarray | None" = None,
+                       block_var_pct: int = 0, block_var_seed: int = 0,
+                       limit_read_bps: int = 0, limit_write_bps: int = 0,
+                       rl_state=None) -> None:
         """One chunk of the block loop in C++: fd_idx (uint32 array, or
         None for one file) selects the file of each block, offsets are
         in-file offsets. The engine fills each write slot from buf_addr,
         or with the verify pattern under verify_salt, and checks reads
         against it, raising NativeVerifyError at the first mismatch.
+        Its block modifiers: op_is_read, the uint8 per-op read flags of
+        a --rwmixpct write phase; block_var_pct/seed, the --blockvarpct
+        refill of each write block (the engine's "fast" tier); the
+        per-thread limits in bytes/s, whose windows live in rl_state (4
+        uint64: read, then write) so that they carry across chunks.
         Counters and latencies are booked on the worker."""
         n = len(offsets)
         lat_arr = (ctypes.c_uint64 * n)()
@@ -366,15 +389,18 @@ class _NativeEngine:
             _as_ptr(lengths, np.uint64, ctypes.c_uint64), n,
             1 if is_write else 0, ctypes.c_void_p(buf_addr),
             int(lengths.max()), iodepth, lat_arr, ctypes.byref(bytes_done),
-            ctypes.byref(interrupt_flag), ENGINE_CODES[engine], None,
-            verify_salt, 1 if verify_salt else 0, 0, 0, verify_info, 0, 0,
-            None, 0, 0, -1, 0, worker.rank)
+            ctypes.byref(interrupt_flag), ENGINE_CODES[engine],
+            None if op_is_read is None
+            else _as_ptr(op_is_read, np.uint8, ctypes.c_ubyte),
+            verify_salt, 1 if verify_salt else 0, block_var_pct,
+            block_var_seed, verify_info, limit_read_bps, limit_write_bps,
+            rl_state, 0, 0, -1, 0, worker.rank)
         if ret == -_EILSEQ:
             raise NativeVerifyError(*(int(v) for v in verify_info))
         if ret < 0:
             raise OSError(-ret, os.strerror(-ret))
-        _account_chunk(worker, lat_arr, n, bytes_done.value,
-                       int(lengths.sum()))
+        _account_chunk(worker, lat_arr, lengths, n, bytes_done.value,
+                       int(lengths.sum()), op_is_read)
 
 
 def get_native_engine() -> "_NativeEngine | None":

@@ -2,7 +2,9 @@
 
 Reference: elbencho_tpu/workers/base.py (source/workers/Worker.{h,cpp}):
 LiveOps counters, stonewall snapshots for first-done results, latency
-histograms, per-phase elapsed time, the interruption flag.
+histograms, per-phase elapsed time, the interruption flag. The rwmix-read
+counters and histograms hold the reads of a write phase: the
+``--rwmixpct`` reads, and all ops of a ``--rwmixthr`` reader.
 """
 
 from __future__ import annotations
@@ -47,10 +49,14 @@ class Worker:
         self.shared = shared
         self.rank = rank
         self.live_ops = LiveOps()
+        self.live_ops_rwmix_read = LiveOps()
         self.stonewall_ops = LiveOps()
+        self.stonewall_ops_rwmix_read = LiveOps()
         self.stonewall_taken = False
         self.iops_latency_histo = LatencyHistogram()
         self.entries_latency_histo = LatencyHistogram()
+        self.iops_latency_histo_rwmix = LatencyHistogram()
+        self.entries_latency_histo_rwmix = LatencyHistogram()
         self.elapsed_usec_vec: "list[int]" = []
         self.stonewall_elapsed_usec = 0
         self.got_phase_work = True
@@ -95,10 +101,14 @@ class Worker:
         self.is_interrupted = False
         self._native_interrupt.value = 0
         self.live_ops.reset()
+        self.live_ops_rwmix_read.reset()
         self.stonewall_ops.reset()
+        self.stonewall_ops_rwmix_read.reset()
         self.stonewall_taken = False
         self.iops_latency_histo.reset()
         self.entries_latency_histo.reset()
+        self.iops_latency_histo_rwmix.reset()
+        self.entries_latency_histo_rwmix.reset()
         self.elapsed_usec_vec = []
         self.stonewall_elapsed_usec = 0
         self.got_phase_work = True
@@ -116,6 +126,7 @@ class Worker:
         if self.stonewall_taken or not self.shared.stonewall_triggered:
             return
         self.stonewall_ops = self.live_ops.snapshot()
+        self.stonewall_ops_rwmix_read = self.live_ops_rwmix_read.snapshot()
         self.stonewall_elapsed_usec = self.phase_elapsed_usec()
         self.stonewall_taken = True
 
@@ -124,6 +135,8 @@ class Worker:
         if not self.stonewall_taken:
             # first finisher: stonewall stats == final stats
             self.stonewall_ops = self.live_ops.snapshot()
+            self.stonewall_ops_rwmix_read = \
+                self.live_ops_rwmix_read.snapshot()
             self.stonewall_elapsed_usec = self.phase_elapsed_usec()
             self.stonewall_taken = True
         self.elapsed_usec_vec.append(self.phase_elapsed_usec())

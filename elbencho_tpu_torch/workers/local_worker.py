@@ -18,10 +18,18 @@ counters), tried in this order:
 
 Under ``--ioretries`` each loop retries a transient storage error
 (workers/io_errors.py): the Python loop and the ring per op, the native
-block loop per chunk; ``--iotimeout`` bounds a ring op. Every call into
-the device context goes through ``_gpu_guarded``, which hands a lost GPU
-to ``--gpufallback``. The engine's per-file loop, custom trees and the
-other storage back ends are later slices.
+block loop per chunk; ``--iotimeout`` bounds a ring op. A write phase
+under ``--rwmixpct`` reads every op whose ``(rank + op index) % 100`` is
+below the percentage, in all three loops; under ``--rwmixthr`` the first
+ranks run the read workload instead; both book their reads in the
+rwmix-read counters. The per-thread ``--limitread``/``--limitwrite``
+limits and the ``--rwmixthrpct`` balancer run per op in the Python loop
+(the limits also in the native block loop), and ``--blockvarpct``
+refills each write block on the host (the device's fill pool is the
+source of a device phase's writes, so there it changes nothing). Every
+call into the device context goes through ``_gpu_guarded``, which hands
+a lost GPU to ``--gpufallback``. The engine's per-file loop, custom trees
+and the other storage back ends are later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
@@ -45,7 +53,8 @@ from ..toolkits import logger
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
                                    OffsetGenSequential)
-from ..toolkits.random_algos import RandAlgoGoldenPrime
+from ..toolkits.random_algos import RandAlgoGoldenPrime, create_rand_algo
+from ..toolkits.rate_limiter import RateLimiter
 from ..utils.native import (ENGINE_CODES, NativeStreamError,
                             NativeVerifyError, _account_chunk,
                             get_native_engine)
@@ -67,6 +76,14 @@ class LocalWorker(Worker):
         self._staging_pool = None
         self._io_bufs: "list[memoryview]" = []
         self._rand_offset_algo = None
+        self._block_var_algo = None  # --blockvarpct refill (Python loop)
+        self._rate_limiter_read: "RateLimiter | None" = None
+        self._rate_limiter_write: "RateLimiter | None" = None
+        # the native engine's limiter windows (read, then write), made
+        # once per prepare like the RateLimiter objects above, so that a
+        # window carries across the engine's chunks and the phases
+        self._native_rl_state = (ctypes.c_uint64 * 4)()
+        self._rwmix_thread_reader = False  # a --rwmixthr reader's phase
         self._gpu = None  # CudaWorkerContext when --gpuids given
         self._native = None  # the native engine, where it can be built
         self._num_iops_submitted = 0
@@ -135,11 +152,18 @@ class LocalWorker(Worker):
             if (cfg.run_create_files or bench in ("d2h", "both")) \
                     and not cfg.integrity_check_salt:
                 self._gpu.warmup_fill()  # device fill outside timed phase
-            if cfg.run_read_files or bench in ("h2d", "both"):
+            if cfg.run_read_files or bench in ("h2d", "both") \
+                    or cfg.rwmix_read_pct or cfg.num_rwmix_read_threads:
                 self._gpu.warmup_transfer()
             if cfg.gpu_profile_dir:
                 self._gpu.profile_warmup()  # its buffers, outside phases
         self._rand_offset_algo = RandAlgoGoldenPrime(seed=None)
+        if cfg.block_variance_pct:
+            self._block_var_algo = create_rand_algo(cfg.block_variance_algo)
+        if cfg.limit_read_bps:
+            self._rate_limiter_read = RateLimiter(cfg.limit_read_bps)
+        if cfg.limit_write_bps:
+            self._rate_limiter_write = RateLimiter(cfg.limit_write_bps)
 
     def cleanup(self) -> None:
         if self._gpu is not None:
@@ -204,7 +228,42 @@ class LocalWorker(Worker):
 
     def _dispatch_phase(self, phase: BenchPhase) -> None:
         """Phase x path type -> loop (reference: the POSIX branches of
-        the JAX package's _dispatch_phase_inner)."""
+        the JAX package's _dispatch_phase_inner). Under --rwmixthr the
+        first ranks of each process run the read workload in the write
+        phase (reference: the rwmix-threads reader conversion,
+        LocalWorker.cpp:1054-1062)."""
+        cfg = self.cfg
+        if (phase == BenchPhase.CREATEFILES and cfg.num_rwmix_read_threads
+                and (self.rank % max(1, cfg.num_threads))
+                < cfg.num_rwmix_read_threads):
+            self._run_as_rwmix_reader()
+            return
+        self._dispatch_phase_inner(phase)
+
+    def _run_as_rwmix_reader(self) -> None:
+        """Swap the counters, the stonewall snapshots and the histograms
+        with their rwmix-read twins, run the read workload, swap back. The
+        JAX package leaves the stonewall snapshots out of the swap, so a
+        snapshot taken while a reader ran landed in the wrong column."""
+        def swap():
+            self.live_ops, self.live_ops_rwmix_read = \
+                self.live_ops_rwmix_read, self.live_ops
+            self.stonewall_ops, self.stonewall_ops_rwmix_read = \
+                self.stonewall_ops_rwmix_read, self.stonewall_ops
+            self.iops_latency_histo, self.iops_latency_histo_rwmix = \
+                self.iops_latency_histo_rwmix, self.iops_latency_histo
+            self.entries_latency_histo, self.entries_latency_histo_rwmix = \
+                self.entries_latency_histo_rwmix, self.entries_latency_histo
+
+        swap()
+        self._rwmix_thread_reader = True
+        try:
+            self._dispatch_phase_inner(BenchPhase.READFILES)
+        finally:
+            self._rwmix_thread_reader = False
+            swap()
+
+    def _dispatch_phase_inner(self, phase: BenchPhase) -> None:
         if phase == BenchPhase.TPUBENCH:
             from .gpubench import run_gpubench_phase
             run_gpubench_phase(self)
@@ -306,8 +365,10 @@ class LocalWorker(Worker):
 
     def _write_one_file(self, path: str) -> None:
         cfg = self.cfg
+        # the reads of --rwmixpct go through the same fd
+        flags = os.O_RDWR if cfg.rwmix_read_pct else os.O_WRONLY
         try:
-            fd = os.open(path, os.O_WRONLY | os.O_CREAT, MKFILE_MODE)
+            fd = os.open(path, flags | os.O_CREAT, MKFILE_MODE)
         except FileNotFoundError as err:
             if not cfg.run_create_dirs:
                 # parity hint (reference: dirModeOpenAndPrepFile :7395)
@@ -452,6 +513,7 @@ class LocalWorker(Worker):
         in dir mode a --gpubatch span never holds blocks of two files."""
         cfg = self.cfg
         native = self._native
+        native_blocker = None
         if self._gpu is not None and cfg.gpu_stream != "off":
             blocker = self._gpu_stream_blocker(native, gen)
             if blocker is None:
@@ -468,22 +530,48 @@ class LocalWorker(Worker):
                 f"NOTE: fused GPU stream ineligible ({blocker}); "
                 f"using the Python loop")
         elif self._gpu is None and native is not None:
-            self._run_native_block_loop(native, fd, gen, is_write, stripe)
-            return
+            native_blocker = self._native_loop_blocker()
+            if native_blocker is None:
+                self._run_native_block_loop(native, fd, gen, is_write,
+                                            stripe)
+                return
         if cfg.io_engine != "auto":
+            why = ("incompatible with --gpuids" if self._gpu is not None
+                   else f"incompatible with the {native_blocker}"
+                   if native_blocker else "native ioengine unavailable")
             raise WorkerException(
                 f"--ioengine {cfg.io_engine} only supports the native "
-                f"block loop — " + ("incompatible with --gpuids"
-                                    if self._gpu is not None
-                                    else "native ioengine unavailable"))
+                f"block loop — {why}")
         num_bufs = len(self._io_bufs)
+        # the byte-ratio balancer paces the mixed write phase only (its
+        # writers and converted readers): a later READ phase must not
+        # wait for writer bytes that never come
+        balancer = self.shared.rwmix_balancer \
+            if (is_write or self._rwmix_thread_reader) else None
         for off, length in gen:
             # rotate buffers so pipelined transfers never race a reuse
             buf = self._io_bufs[self._num_iops_submitted % num_bufs]
-            self.check_interruption_request()
+            do_read = (not is_write) or self._rwmix_decides_read()
+            limiter = self._rate_limiter_read if do_read \
+                else self._rate_limiter_write
+            if limiter or balancer:
+                # their sleeps can be long: the stop is tested every op,
+                # and between the slices of a limiter's sleep
+                self.check_interruption_request(force=True)
+                if balancer:
+                    if do_read:
+                        balancer.wait_read(length)
+                    else:
+                        balancer.wait_write(length)
+                    self.check_interruption_flag_only()  # woken by a stop
+                if limiter:
+                    limiter.wait(length,
+                                 stop=self.check_interruption_flag_only)
+            else:
+                self.check_interruption_request()
             if stripe is not None:
                 fd, off = stripe[0][off // stripe[1]], off % stripe[1]
-            if is_write:
+            if not do_read:
                 self._pre_write_fill(buf, off, length)
 
             def one_op():
@@ -492,23 +580,26 @@ class LocalWorker(Worker):
                 The latency is the successful attempt's, without the
                 backoff."""
                 t0 = time.perf_counter_ns()
-                if is_write:
-                    n = os.pwritev(fd, [buf[:length]], off)
-                else:
+                if do_read:
                     n = os.preadv(fd, [buf[:length]], off)
+                else:
+                    n = os.pwritev(fd, [buf[:length]], off)
                 if n != length:
-                    raise ShortIOError(not is_write, off, n, length)
+                    raise ShortIOError(do_read, off, n, length)
                 return n, (time.perf_counter_ns() - t0) // 1000
 
             try:
                 n, lat_usec = self._with_retries(one_op)
             except ShortIOError as err:
                 raise WorkerException(str(err)) from None
-            if not is_write:
+            if do_read:
                 self._post_read_actions(buf, off, length)
-            self.iops_latency_histo.add_latency(lat_usec)
-            self.live_ops.num_bytes_done += n
-            self.live_ops.num_iops_done += 1
+            mixed_read = is_write and do_read  # a --rwmixpct read
+            (self.iops_latency_histo_rwmix if mixed_read
+             else self.iops_latency_histo).add_latency(lat_usec)
+            ops = self.live_ops_rwmix_read if mixed_read else self.live_ops
+            ops.num_bytes_done += n
+            ops.num_iops_done += 1
             self._num_iops_submitted += 1
         if self._gpu is not None:
             # drain pipelined transfers before phase end (guarded: a copy
@@ -541,8 +632,28 @@ class LocalWorker(Worker):
     _NATIVE_CHUNK_MAX_BYTES = 256 << 20
 
     def _native_chunk_blocks(self) -> int:
-        by_bytes = self._NATIVE_CHUNK_MAX_BYTES // max(self.cfg.block_size, 1)
+        """Under a rate limit one engine call must not span minutes of
+        throttled I/O (the live statistics refresh between chunks): a
+        chunk is capped at about 2 s of the tightest budget."""
+        cfg = self.cfg
+        max_bytes = self._NATIVE_CHUNK_MAX_BYTES
+        limits = [x for x in (cfg.limit_read_bps, cfg.limit_write_bps) if x]
+        if limits:
+            max_bytes = min(max_bytes, 2 * min(limits))
+        by_bytes = max_bytes // max(cfg.block_size, 1)
         return max(1, min(self._NATIVE_CHUNK_MAX_BLOCKS, by_bytes))
+
+    def _native_loop_blocker(self) -> "str | None":
+        """Why the native block loop cannot serve a phase without a
+        device (None = it can): the per-op Python features it lacks.
+        Verify, the --rwmixpct split, the "fast" --blockvarpct refill
+        and the rate limits run inside the engine (BlockMod)."""
+        cfg = self.cfg
+        if self.shared.rwmix_balancer is not None:
+            return "--rwmixthr byte-ratio balancer"
+        if cfg.block_variance_pct and cfg.block_variance_algo != "fast":
+            return "non-'fast' --blockvaralgo"
+        return None
 
     # ------------------------------------------------------------------
     # fused storage->device streaming ring (--gpustream): the engine keeps
@@ -569,6 +680,10 @@ class LocalWorker(Worker):
                 return "per-file stream too short to amortize ring setup"
         if not native.stream_supported():
             return "kernel lacks both io_uring and AIO"
+        if self.shared.rwmix_balancer is not None:
+            return "--rwmixthr byte-ratio balancer"
+        if self._rate_limiter_read or self._rate_limiter_write:
+            return "per-op rate limits"
         if cfg.io_engine != "auto" and \
                 ENGINE_CODES[cfg.io_engine] != native.stream_backend():
             return (f"--ioengine {cfg.io_engine} pinned but the stream "
@@ -605,11 +720,13 @@ class LocalWorker(Worker):
         # slot-reuse discipline: a slot is free, in the engine ring
         # (slot_op), or held back after its H2D until the transfer ring
         # has drained the copy that reads it (holdback_depth, fixed for
-        # the phase)
+        # the phase); only a free slot takes a write's D2H pre-fill
         hold = self._gpu.holdback_depth()
         free = deque(range(len(slot_addrs)))
         held: "deque[int]" = deque()
-        slot_op: "dict[int, tuple[int, int, int, int, int]]" = {}
+        # slot -> (index in chunk, fd index, offset, length, is a read,
+        # attempts): each op keeps its own direction
+        slot_op: "dict[int, tuple[int, int, int, int, bool, int]]" = {}
         chunk = self._native_chunk_blocks()
         try:
             if cfg.io_timeout_secs:
@@ -650,25 +767,29 @@ class LocalWorker(Worker):
         for slots as needed), then drain to a chunk barrier so that the
         array-based accounting is exact; an interrupt books the
         completed-prefix estimate before it propagates. A failed op is
-        retried on its slot under --ioretries."""
+        retried on its slot under --ioretries. In a --rwmixpct write
+        phase the per-op flags pick the reads: a read is submitted with
+        no pre-fill and copied to the device when reaped, as in a READ
+        phase."""
         cfg = self.cfg
         ctx = self._gpu
         offsets, lengths = batch
         n = len(offsets)
         fd_idx, real_offs = self._stripe_offsets(offsets, stripe_size)
+        flags = self._rwmix_read_flags(n) if is_write else None
         total = int(lengths.sum())
         lat_arr = (ctypes.c_uint64 * n)()
         reaped_bytes = 0
 
         def retry_or_raise(slot: int, op: tuple, err: OSError) -> None:
             """--ioretries for a failed ring op: backoff, then submit the
-            same op on the same slot again (the slot still holds a
-            write's source; a read retries into it). Its attempts are
-            counted per op in slot_op: the ring interleaves many ops, and
-            the retrier's shared consecutive count would mix them up.
-            Raises the original error when retries are off, spent or do
-            not apply."""
-            i, fdi, r_off, length, attempts = op
+            same op on the same slot again, in its own direction (the
+            slot still holds a write's source; a read retries into it).
+            Its attempts are counted per op in slot_op: the ring
+            interleaves many ops, and the retrier's shared consecutive
+            count would mix them up. Raises the original error when
+            retries are off, spent or do not apply."""
+            i, fdi, r_off, length, rd, attempts = op
             retrier = self._io_retrier
             if retrier is None or not retrier.should_retry(
                     err, path=self._retry_path_hint(), attempt=attempts):
@@ -679,8 +800,8 @@ class LocalWorker(Worker):
                 retrier.backoff(attempt=attempts)
             except IoRetryBudgetExhausted:
                 raise err from None
-            slot_op[slot] = (i, fdi, r_off, length, attempts + 1)
-            stream.submit(slot, fdi, r_off, length, is_write)
+            slot_op[slot] = (i, fdi, r_off, length, rd, attempts + 1)
+            stream.submit(slot, fdi, r_off, length, not rd)
 
         def reap_some(min_complete: int) -> None:
             nonlocal reaped_bytes
@@ -703,12 +824,12 @@ class LocalWorker(Worker):
                             f"backend; aborting the phase")
                 return
             for slot, lat, res in events:
-                if not is_write:
+                op = slot_op.pop(slot)
+                i, _fdi, r_off, length, rd, _attempts = op
+                if rd:
                     # one completed read's copy and verify can take tens
                     # of ms: a stop takes effect before the next one
                     self.check_interruption_flag_only()
-                op = slot_op.pop(slot)
-                i, _fdi, r_off, length, _attempts = op
                 if res < 0:
                     if -res == errno.ETIMEDOUT:
                         # --iotimeout cancelled a hung op: transient, so
@@ -718,12 +839,12 @@ class LocalWorker(Worker):
                     continue
                 if res != length:
                     retry_or_raise(slot, op, ShortIOError(
-                        not is_write, r_off, res, length))
+                        rd, r_off, res, length))
                     continue
                 lat_arr[i] = lat
                 reaped_bytes += res
                 ctx.stream_fused_ops += 1
-                if is_write:
+                if not rd:
                     free.append(slot)
                     continue
                 # host->device copy + verify (host memcmp or on-device),
@@ -755,19 +876,21 @@ class LocalWorker(Worker):
                 slot = free.popleft()
                 length = int(lengths[i])
                 r_off = int(real_offs[i])
-                if is_write:
+                rd = bool(flags[i]) if flags is not None else not is_write
+                if not rd:
                     # the block originates in device memory: D2H into the
                     # slot, complete before the write is submitted
                     self._pre_write_fill(self._io_bufs[slot], r_off, length)
                 fdi = int(fd_idx[i]) if fd_idx is not None else 0
-                slot_op[slot] = (i, fdi, r_off, length, 0)
-                stream.submit(slot, fdi, r_off, length, is_write)
+                slot_op[slot] = (i, fdi, r_off, length, rd, 0)
+                stream.submit(slot, fdi, r_off, length, not rd)
             while slot_op:  # chunk barrier: exact accounting below
                 reap_some(1)
         except WorkerInterruptedException:
-            _account_chunk(self, lat_arr, n, reaped_bytes, total)
+            _account_chunk(self, lat_arr, lengths, n, reaped_bytes, total,
+                           flags)
             raise
-        _account_chunk(self, lat_arr, n, reaped_bytes, total)
+        _account_chunk(self, lat_arr, lengths, n, reaped_bytes, total, flags)
 
     # ------------------------------------------------------------------
     # native block loop (phases without a device): the whole loop, host
@@ -790,13 +913,23 @@ class LocalWorker(Worker):
                 return
             self.check_interruption_request(force=True)
             fd_idx, offsets = self._stripe_offsets(batch[0], stripe_size)
+            # the --rwmixpct split, vectorized (reference:
+            # (workerRank + numIOPSSubmitted) % 100 < pct, :1741-1742)
+            flags = self._rwmix_read_flags(len(offsets)) if is_write \
+                else None
 
-            def call(fd_idx=fd_idx, offsets=offsets, lengths=batch[1]):
+            def call(fd_idx=fd_idx, offsets=offsets, lengths=batch[1],
+                     flags=flags):
                 native.run_block_loop(
                     fds, fd_idx, offsets, lengths, is_write, buf_addr,
                     cfg.io_depth, self, self._native_interrupt,
                     engine=cfg.io_engine,
-                    verify_salt=cfg.integrity_check_salt)
+                    verify_salt=cfg.integrity_check_salt, op_is_read=flags,
+                    block_var_pct=cfg.block_variance_pct,
+                    block_var_seed=self._block_var_seed(),
+                    limit_read_bps=cfg.limit_read_bps,
+                    limit_write_bps=cfg.limit_write_bps,
+                    rl_state=self._native_rl_state)
 
             try:
                 # --ioretries: a transient chunk failure runs the whole
@@ -893,6 +1026,29 @@ class LocalWorker(Worker):
         self.gpu_dispatch_usec = self._gpu.dispatch_usec
         self.gpu_transfer_usec = self._gpu.transfer_usec
 
+    # -- the --rwmixpct split and the --blockvarpct seed ---------------------
+
+    def _rwmix_decides_read(self) -> bool:
+        """Per-op modulo split (reference: (workerRank + numIOPSSubmitted)
+        % 100 < rwMixReadPercent, LocalWorker.cpp:1741-1742)."""
+        pct = self.cfg.rwmix_read_pct
+        return bool(pct) and \
+            (self.rank + self._num_iops_submitted) % 100 < pct
+
+    def _rwmix_read_flags(self, n: int) -> "np.ndarray | None":
+        """The read flags of the next n ops of a write phase (uint8), the
+        vectorized _rwmix_decides_read; None without --rwmixpct."""
+        pct = self.cfg.rwmix_read_pct
+        if not pct:
+            return None
+        base = np.uint64(self.rank + self._num_iops_submitted)
+        return (((base + np.arange(n, dtype=np.uint64)) % np.uint64(100))
+                < np.uint64(pct)).astype(np.uint8)
+
+    def _block_var_seed(self) -> int:
+        """The engine's --blockvarpct refill seed, per worker and chunk."""
+        return (self.rank << 32) ^ self._num_iops_submitted
+
     # -- write-side block content -------------------------------------------
 
     def _pre_write_fill(self, buf: memoryview, offset: int,
@@ -913,6 +1069,13 @@ class LocalWorker(Worker):
         if cfg.integrity_check_salt:
             fill_verify_pattern_host(buf, offset, length,
                                      cfg.integrity_check_salt)
+        elif cfg.block_variance_pct:
+            # refill the first pct % of the slot (reference:
+            # preWriteBufRandRefill, LocalWorker.cpp:2242); the rest keeps
+            # the slot's pre-fill
+            refill = (length * cfg.block_variance_pct) // 100
+            if refill:
+                buf[:refill] = self._block_var_algo.fill_buffer(refill)
 
     def _verify_read_buf(self, buf: memoryview, offset: int,
                          length: int) -> None:

@@ -166,6 +166,8 @@ class WorkerManager:
                 + shared.num_workers_done_with_error) >= len(self.workers)
 
     def interrupt_and_notify_workers(self) -> None:
+        if self.shared.rwmix_balancer is not None:
+            self.shared.rwmix_balancer.interrupt()  # wake blocked waiters
         for worker in self.workers:
             worker.interrupt_execution()
 

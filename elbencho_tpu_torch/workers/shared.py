@@ -4,8 +4,9 @@ Reference: elbencho_tpu/workers/shared.py (source/workers/
 WorkersSharedData.{h,cpp}): one mutex+condvar, the current bench phase,
 the bench UUID acting as the phase-start signal, done counters, the phase
 start timestamp, CPU-util snapshots, the interrupt and time-limit flags,
-the partial-dataset latch and the GPUs lost to --gpufallback. Also the
-worker exception types (source/workers/WorkerException.h).
+the partial-dataset latch, the GPUs lost to --gpufallback and the
+--rwmixthrpct byte-ratio balancer. Also the worker exception types
+(source/workers/WorkerException.h).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import uuid as uuid_mod
 
 from ..phases import BenchPhase
 from ..stats.cpu_util import CPUUtil
+from ..toolkits.rate_limiter import RateLimiterRWMixThreads
 
 
 class WorkerException(Exception):
@@ -57,6 +59,12 @@ class WorkersSharedData:
         # ((bench uuid, --infloop pass), _SliceState) of the current
         # --gpuslice phase
         self.slice_state = None
+        # --rwmixthrpct byte-ratio balancer, shared by all workers
+        # (reference: RateLimiterRWMixThreads static atomics)
+        self.rwmix_balancer = None
+        if config.rwmix_thr_read_pct:
+            self.rwmix_balancer = RateLimiterRWMixThreads(
+                config.rwmix_thr_read_pct)
 
     def start_phase(self, phase: BenchPhase) -> str:
         """Set the new phase + a fresh bench UUID and wake all workers
@@ -78,6 +86,8 @@ class WorkersSharedData:
             self.phase_start_monotonic = time.monotonic()
             self.cpu_util_first_meter.update()  # baselines for the phase
             self.cpu_util_last_meter.update()
+            if self.rwmix_balancer is not None:
+                self.rwmix_balancer.reset()
             self.cond.notify_all()
             return self.bench_uuid
 

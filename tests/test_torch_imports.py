@@ -66,7 +66,10 @@ def test_importing_the_cli_loads_no_jax():
             "elbencho_tpu_torch.parallel.slice_phase, "
             "elbencho_tpu_torch.parallel.mesh, "
             "elbencho_tpu_torch.parallel.ingest, "
-            "elbencho_tpu_torch.models.workloads, elbencho_tpu_torch.entry;"
+            "elbencho_tpu_torch.models.workloads, elbencho_tpu_torch.entry, "
+            "elbencho_tpu_torch.toolkits.rate_limiter, "
+            "elbencho_tpu_torch.toolkits.random_algos, "
+            "elbencho_tpu_torch.stats.statistics;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

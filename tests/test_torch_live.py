@@ -100,10 +100,9 @@ def fake_worker(pkg, rank):
     _stats, _args, live_ops_cls, histo_cls, _cpu = PACKAGES[pkg]
     w = types.SimpleNamespace(
         rank=rank, live_ops=live_ops_cls(), phase_finished=False,
-        iops_latency_histo=histo_cls(), entries_latency_histo=histo_cls())
-    if pkg == "jax":  # the rwmix counters the port does not have yet
-        w.live_ops_rwmix_read = live_ops_cls()
-        w.iops_latency_histo_rwmix = histo_cls()
+        iops_latency_histo=histo_cls(), entries_latency_histo=histo_cls(),
+        live_ops_rwmix_read=live_ops_cls(),
+        iops_latency_histo_rwmix=histo_cls())
     return w
 
 
