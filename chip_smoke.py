@@ -162,7 +162,21 @@ without printing a result otherwise. In order it:
    half new, the second halves repeating) and with one (the bytes of the
    write without it); prints each run's loop, MiB/s, rwmix read MiB/s
    and the D2H copies served by the speculation and issued fresh;
-16. prints the kernel line {"kernels": [...]} and, last, the result line
+16. the engine's last per-op features (blockmod_pass), after 15 and
+   before 7, at -t 2 -b 16M --iodepth 4 on a 1 GiB file: (a) -w --verify
+   7 --verifydirect, staged and --gpudirect (the ring's NOTE names the
+   read-back, the Python loop serves every op, 64 D2H copies), each
+   followed by a --gpuverify read (64 launches); (b) -r --gpuverify
+   --opslog --opsloglock (64 whole JSON read records of ranks 0 and 1
+   covering the file once, 64 launches), and --gpustream on --opslog,
+   which must fail naming the blocker; (c) -w -r --flock range and full
+   with --gpudirect; (d) without a device at --iodepth 1, --opslog (the
+   engine writes the records), --flock range and --readinline, each
+   through the engine's block loop with the feature's argument; prints
+   each run's loop and MiB/s beside its twin's (the same run without
+   the feature, through the ring where it is eligible) and the pass's
+   wall time, which must stay within BLOCKMOD_LIMIT_S (90 s);
+17. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -2540,6 +2554,199 @@ def rwmix_pass(work: str) -> int:
     return total
 
 
+BLOCKMOD_SIZE = 1 << 30        # -s 1g of the per-op feature pass
+BLOCKMOD_LIMIT_S = 90          # the most the pass may take
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """The per-op feature arguments of every call into the native
+    engine's block loop while the block runs: a list of (flock_mode,
+    inline_readback, an ops-log fd given, ops_lock)."""
+    from elbencho_tpu_torch.utils.native import _NativeEngine
+    real = _NativeEngine.run_block_loop
+    calls = []
+
+    def spy(self, *args, **kwargs):
+        calls.append((kwargs.get("flock_mode", 0),
+                      bool(kwargs.get("inline_readback")),
+                      kwargs.get("ops_fd", -1) >= 0,
+                      bool(kwargs.get("ops_lock"))))
+        return real(self, *args, **kwargs)
+
+    _NativeEngine.run_block_loop = spy
+    try:
+        yield calls
+    finally:
+        _NativeEngine.run_block_loop = real
+
+
+def blockmod_pass(work: str) -> int:
+    """The engine's last per-op features on the card at the main path's
+    width (-t 2 -b 16M --iodepth 4) on a 1 GiB file of 64 blocks, each
+    run beside its plain twin (the same run without the feature, through
+    the fused ring where that is eligible). Returns the fingerprint
+    launches.
+
+    (a) -w --verify 7 --verifydirect --gpuids 0, staged and --gpudirect,
+        under --gpustream auto: the NOTE names the read-back, the Python
+        loop serves every op, 64 D2H copies and the file's bytes; each
+        written block was read back and verified on the host. Then a
+        --gpuverify read of the file (64 launches).
+    (b) -r --verify 7 --gpuverify --opslog F --opsloglock, staged and
+        --gpudirect: 64 "read" records, each a whole JSON line, ranks 0
+        and 1, the offsets covering the file once, 64 launches; and
+        --gpustream on --opslog fails naming the blocker.
+    (c) -w -r --verify 7 --gpuverify --gpudirect with --flock range and
+        --flock full: bytes, ops, 64 launches, the Python loop.
+    (d) without a device, at --iodepth 1: --opslog (the engine writes
+        the 64 records), --flock range and --readinline --verify 7, each
+        served by the engine's block loop with the feature's argument."""
+    t_start = time.monotonic()
+    path = os.path.join(work, "blockmod.bin")
+    ops_path = os.path.join(work, "blockmod.jsonl")
+    json_path = os.path.join(work, "blockmod.json")
+    blocks = BLOCKMOD_SIZE // MAIN_BLOCK
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4",
+              "-s", f"{BLOCKMOD_SIZE >> 20}M"]
+    dev = ["--gpuids", "0"]
+    verify = ["--verify", "7"]
+    total = 0
+
+    def run(name, args, phases, on_device=True, launches=0, fused=False):
+        """One run, checked for its bytes, ops, copies, launches and
+        loop; returns ({phase: record}, console output, engine calls)."""
+        nonlocal total
+        out = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(out), engine_calls() as calls:
+            recs, got = run_pass(name, args + [path], json_path, phases,
+                                 on_device=on_device)
+        total += got
+        if got != launches:
+            fail(f"pass '{name}': {got} fingerprint launches, want "
+                 f"{launches}")
+        for rec in recs:
+            expect(name, rec, BytesLast=BLOCKMOD_SIZE, ops=blocks,
+                   TpuStreamFusedOps=blocks if fused else 0,
+                   device_ops=blocks if on_device else 0)
+        if on_device and calls:
+            fail(f"pass '{name}': a device phase called the engine's "
+                 f"block loop")
+        return {r["Phase"]: r for r in recs}, out.text.getvalue(), calls
+
+    def line(name, rec, twin, loop):
+        print(f"  {name}: {loop}, {rec['MiBPerSecLast']} MiB/s against "
+              f"the twin's {twin['MiBPerSecLast']} MiB/s "
+              f"({rec['MiBPerSecLast'] / twin['MiBPerSecLast']:.3f}x)")
+
+    print(f"blockmod pass (a): -w --verify 7 --verifydirect, "
+          f"{BLOCKMOD_SIZE >> 20} MiB")
+    note = ("NOTE: fused GPU stream ineligible (--readinline/--verifydirect "
+            "inline read-back); using the Python loop")
+    for mode, flags in (("staged", []), ("--gpudirect", ["--gpudirect"])):
+        twin, _, _ = run(f"-w --verify 7, {mode}",
+                         ["-w", *common, *dev, *verify, *flags], ["WRITE"],
+                         fused=True)
+        recs, out, _ = run(f"-w --verify 7 --verifydirect, {mode}",
+                           ["-w", *common, *dev, *verify, "--verifydirect",
+                            *flags], ["WRITE"])
+        if note not in out:
+            fail(f"the --verifydirect write ({mode}) printed no NOTE naming "
+                 f"the read-back")
+        line(f"--verifydirect write, {mode}", recs["WRITE"], twin["WRITE"],
+             loop_taken(recs["WRITE"]))
+        run(f"--gpuverify read after the --verifydirect write, {mode}",
+            ["-r", *common, *dev, *verify, "--gpuverify", *flags], ["READ"],
+            launches=blocks, fused=True)
+
+    print("blockmod pass (b): -r --verify 7 --gpuverify --opslog "
+          "--opsloglock")
+    for mode, flags in (("staged", []), ("--gpudirect", ["--gpudirect"])):
+        read = ["-r", *common, *dev, *verify, "--gpuverify", *flags]
+        twin, _, _ = run(f"-r --gpuverify, {mode}", read, ["READ"],
+                         launches=blocks, fused=True)
+        if os.path.exists(ops_path):
+            os.unlink(ops_path)
+        recs, out, _ = run(f"-r --gpuverify --opslog, {mode}",
+                           read + ["--opslog", ops_path, "--opsloglock"],
+                           ["READ"], launches=blocks)
+        with open(ops_path) as f:
+            text = f.read()
+        lines = text.split("\n")
+        if lines[-1] != "" or len(lines) != blocks + 1:
+            fail(f"--opslog ({mode}): {len(lines) - 1} lines, want {blocks} "
+                 f"whole lines")
+        ops = [json.loads(x) for x in lines[:-1]]
+        offsets = sorted(r["offset"] for r in ops)
+        if {r["op_name"] for r in ops} != {"read"} \
+                or {r["worker_rank"] for r in ops} != {0, 1} \
+                or offsets != [i * MAIN_BLOCK for i in range(blocks)] \
+                or {r["length"] for r in ops} != {MAIN_BLOCK} \
+                or any(r["is_error"] or not r["is_finished"] for r in ops):
+            fail(f"--opslog ({mode}): the records do not cover the file "
+                 f"once in read records of ranks 0 and 1")
+        line(f"--opslog read, {mode}", recs["READ"], twin["READ"],
+             f"{loop_taken(recs['READ'])}, {len(ops)} records")
+    failing_run("-r --gpustream on --opslog",
+                ["-r", *common, *dev, "--gpustream", "on", "--opslog",
+                 ops_path, path], json_path,
+                "fused native-stream loop unavailable (--opslog per-op "
+                "records)")
+    print("  -r --gpustream on --opslog: failed naming the blocker")
+
+    print("blockmod pass (c): -w -r --flock with --gpudirect")
+    wr = ["-w", "-r", *common, *dev, *verify, "--gpuverify", "--gpudirect"]
+    twin, _, _ = run("-w -r --gpudirect", wr, ["WRITE", "READ"],
+                     launches=blocks, fused=True)
+    for mode in ("range", "full"):
+        recs, _, _ = run(f"-w -r --flock {mode} --gpudirect",
+                         wr + ["--flock", mode], ["WRITE", "READ"],
+                         launches=blocks)
+        for phase in ("WRITE", "READ"):
+            line(f"--flock {mode} {phase.lower()}", recs[phase], twin[phase],
+                 loop_taken(recs[phase]))
+
+    print("blockmod pass (d): no device, --iodepth 1, the engine's block "
+          "loop")
+    host = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "1",
+            "-s", f"{BLOCKMOD_SIZE >> 20}M", *verify]
+    twin, _, _ = run("-w -r, no device", ["-w", "-r", *host],
+                     ["WRITE", "READ"], on_device=False)
+    if os.path.exists(ops_path):
+        os.unlink(ops_path)
+    cases = (("--opslog", ["-w", "--opslog", ops_path], ["WRITE"],
+              (0, False, True, False)),
+             ("--flock range", ["-w", "-r", "--flock", "range"],
+              ["WRITE", "READ"], (1, False, False, False)),
+             ("--readinline", ["-w", "--readinline"], ["WRITE"],
+              (0, True, False, False)))
+    for name, flags, phases, want in cases:
+        recs, _, calls = run(f"{name}, no device", [*flags, *host], phases,
+                             on_device=False)
+        if not calls or set(calls) != {want}:
+            fail(f"'{name}, no device': the engine's block loop got "
+                 f"{sorted(set(calls))}, want {want} in every call")
+        for phase in phases:
+            line(f"{name} {phase.lower()}, no device", recs[phase],
+                 twin[phase], f"engine block loop ({len(calls)} calls)")
+    with open(ops_path) as f:
+        ops = [json.loads(x) for x in f]
+    if len(ops) != blocks or {r["op_name"] for r in ops} != {"write"} \
+            or sorted(r["offset"] for r in ops) \
+            != [i * MAIN_BLOCK for i in range(blocks)]:
+        fail(f"--opslog, no device: {len(ops)} records, want {blocks} write "
+             f"records covering the file")
+    print(f"  --opslog, no device: the engine wrote {len(ops)} records")
+    os.unlink(path)
+    os.unlink(ops_path)
+    secs = time.monotonic() - t_start
+    print(f"blockmod pass: {secs:.1f} s, {total} fingerprint launches")
+    if secs > BLOCKMOD_LIMIT_S:
+        fail(f"the blockmod pass took {secs:.1f} s, over its "
+             f"{BLOCKMOD_LIMIT_S} s")
+    return total
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -2640,6 +2847,7 @@ def main() -> int:
         launches += live_pass(work)
         launches += fault_pass(work)
         launches += rwmix_pass(work)
+        launches += blockmod_pass(work)
         corruption_run(work)
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)

@@ -27,7 +27,9 @@ the data-plane fault tolerance flags (``--ioretries``,
 ``ELBENCHO_TPU_IO_FAULT`` knob is refused outside
 ``ELBENCHO_TPU_TESTING=1``) and the mixed and rate-shaped traffic flags
 (``--rwmixpct``, ``--rwmixthr``, ``--rwmixthrpct``, ``--limitread``,
-``--limitwrite``, ``--blockvarpct``, ``--blockvaralgo``). Custom trees,
+``--limitwrite``, ``--blockvarpct``, ``--blockvaralgo``) and the
+engine's last per-op features (``--flock``, ``--opslog``,
+``--opsloglock``, ``--readinline``, ``--verifydirect``). Custom trees,
 the other storage back ends and the remaining flags are later slices
 (ROADMAP.md queue A).
 """
@@ -95,8 +97,14 @@ FLAG_DEFS = [
      "Random offsets instead of sequential"),
     ("dirsharing", None, "do_dir_sharing", "bool", False,
      "All threads share the same dirs (d0..dN) instead of per-rank dirs"),
+    ("flock", None, "use_file_locks", "str", "",
+     "File range locking mode: range|full"),
     ("verify", None, "integrity_check_salt", "int", 0,
      "Enable data integrity check with given salt (!=0)"),
+    ("verifydirect", None, "do_direct_verify", "bool", False,
+     "Verify data by reading immediately after each write"),
+    ("readinline", None, "do_read_inline", "bool", False,
+     "Read each block immediately after writing it (same FD)"),
     ("blockvarpct", None, "block_variance_pct", "int", 0,
      "Percentage of each block to refill with random data between writes"),
     ("blockvaralgo", None, "block_variance_algo", "str", "fast",
@@ -236,6 +244,10 @@ FLAG_DEFS = [
      "Custom benchmark label for result files"),
     ("dryrun", None, "do_dry_run", "bool", False,
      "Show workload totals and config without running any phase"),
+    ("opslog", None, "ops_log_path", "str", "",
+     "Log every single I/O operation as JSONL to this file"),
+    ("opsloglock", None, "ops_log_lock", "bool", False,
+     "Serialize ops log writes via file lock (for shared-file logs)"),
     ("configfile", "c", "config_file_path", "str", "",
      "Read benchmark settings from this file (ini-style: flag = value)"),
 ]
@@ -534,6 +546,8 @@ class BenchConfig(BenchConfigBase):
                     f"({'|'.join(TRANSFER_PATTERNS + COLLECTIVE_PATTERNS)})")
         if self.io_engine not in ("auto", "sync", "aio", "uring"):
             raise ConfigError("--ioengine must be auto|sync|aio|uring")
+        if self.use_file_locks not in ("", "range", "full"):
+            raise ConfigError("--flock must be range or full")
         if self.io_engine == "sync" and self.io_depth > 1:
             raise ConfigError("--ioengine sync requires --iodepth 1")
         if self.gpu_stream not in ("auto", "on", "off"):

@@ -365,7 +365,9 @@ class _NativeEngine:
                        op_is_read: "np.ndarray | None" = None,
                        block_var_pct: int = 0, block_var_seed: int = 0,
                        limit_read_bps: int = 0, limit_write_bps: int = 0,
-                       rl_state=None) -> None:
+                       rl_state=None, inline_readback: bool = False,
+                       flock_mode: int = 0, ops_fd: int = -1,
+                       ops_lock: bool = False) -> None:
         """One chunk of the block loop in C++: fd_idx (uint32 array, or
         None for one file) selects the file of each block, offsets are
         in-file offsets. The engine fills each write slot from buf_addr,
@@ -375,8 +377,15 @@ class _NativeEngine:
         a --rwmixpct write phase; block_var_pct/seed, the --blockvarpct
         refill of each write block (the engine's "fast" tier); the
         per-thread limits in bytes/s, whose windows live in rl_state (4
-        uint64: read, then write) so that they carry across chunks.
-        Counters and latencies are booked on the worker."""
+        uint64: read, then write) so that they carry across chunks;
+        inline_readback, the --readinline/--verifydirect read of each
+        written block straight back (verified under verify_salt);
+        flock_mode, the --flock lock around each op (0 none, 1 range, 2
+        full); ops_fd, the --opslog file the engine writes one record per
+        block to (-1: none), under flock with ops_lock. The engine runs
+        the locks and the read-back in its sync loop only, and refuses
+        them (EINVAL) on another. Counters and latencies are booked on
+        the worker."""
         n = len(offsets)
         lat_arr = (ctypes.c_uint64 * n)()
         bytes_done = ctypes.c_uint64(0)
@@ -394,7 +403,8 @@ class _NativeEngine:
             else _as_ptr(op_is_read, np.uint8, ctypes.c_ubyte),
             verify_salt, 1 if verify_salt else 0, block_var_pct,
             block_var_seed, verify_info, limit_read_bps, limit_write_bps,
-            rl_state, 0, 0, -1, 0, worker.rank)
+            rl_state, 1 if inline_readback else 0, flock_mode, ops_fd,
+            1 if ops_lock else 0, worker.rank)
         if ret == -_EILSEQ:
             raise NativeVerifyError(*(int(v) for v in verify_info))
         if ret < 0:

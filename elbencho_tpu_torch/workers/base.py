@@ -13,6 +13,7 @@ import ctypes
 import time
 
 from ..stats.latency_histogram import LatencyHistogram
+from ..toolkits.ops_logger import null_logged_op
 from .shared import WorkerInterruptedException, WorkersSharedData
 
 INTERRUPT_CHECK_INTERVAL = 128  # ops between stonewall snapshot checks
@@ -69,8 +70,18 @@ class Worker:
         self.gpu_transfer_usec = 0    # copy wall time (submit -> done)
         self.gpu_dispatch_usec = 0    # host-side submit cost (the overhead
                                       # --gpubudget bounds)
+        self._ops_log = None  # the --opslog OpsLogger, opened at prepare
         self._reset_fault_counters()
         self._reset_slice_counters()
+
+    def oplog(self, op_name: str, entry_name: str = "", offset: int = 0,
+              length: int = 0):
+        """Per-entry trace context (a pre and a post record, the post one
+        with the error flag); a no-op without --opslog (reference: the
+        OPLOG macros, OpsLogger.h:19-36)."""
+        if self._ops_log is None:
+            return null_logged_op()
+        return self._ops_log.logged_op(op_name, entry_name, offset, length)
 
     def _reset_fault_counters(self) -> None:
         """--ioretries/--iotimeout counters, owned by the worker: the

@@ -264,6 +264,10 @@ def _stream_blocker(worker) -> "str | None":
         return "native ioengine unavailable"
     if not native.stream_supported():
         return "kernel lacks both io_uring and AIO"
+    if worker._ops_log is not None:
+        return "--opslog per-op records"
+    if worker._rate_limiter_read or worker._rate_limiter_write:
+        return "per-op rate limits"
     if cfg.io_engine != "auto" and \
             ENGINE_CODES[cfg.io_engine] != native.stream_backend():
         return (f"--ioengine {cfg.io_engine} pinned but the stream "

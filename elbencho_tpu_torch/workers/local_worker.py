@@ -26,10 +26,17 @@ rwmix-read counters. The per-thread ``--limitread``/``--limitwrite``
 limits and the ``--rwmixthrpct`` balancer run per op in the Python loop
 (the limits also in the native block loop), and ``--blockvarpct``
 refills each write block on the host (the device's fill pool is the
-source of a device phase's writes, so there it changes nothing). Every
-call into the device context goes through ``_gpu_guarded``, which hands
-a lost GPU to ``--gpufallback``. The engine's per-file loop, custom trees
-and the other storage back ends are later slices.
+source of a device phase's writes, so there it changes nothing). The
+per-op features ``--flock`` (a byte-range lock around each op),
+``--readinline``/``--verifydirect`` (each written block read straight
+back, and verified under ``--verify``) and ``--opslog`` (one JSONL record
+per block, and a pre and a post record around each dir-mode entry) keep a
+phase off the fused ring; the native block loop serves them at
+``--iodepth 1`` on the sync engine (``--opslog`` at any depth), the
+Python loop everywhere else. Every call into the device context goes
+through ``_gpu_guarded``, which hands a lost GPU to ``--gpufallback``.
+The engine's per-file loop, custom trees and the other storage back ends
+are later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
@@ -39,6 +46,7 @@ map to GPUs by ``rank % len(gpu_ids)`` and move blocks through a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import errno
 import os
@@ -50,9 +58,11 @@ import numpy as np
 from ..ops.fill import fill_verify_pattern_host
 from ..phases import GPU_PROFILE_PHASES, BenchPathType, BenchPhase
 from ..toolkits import logger
+from ..toolkits.file_tk import FileRangeLock
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
                                    OffsetGenSequential)
+from ..toolkits.ops_logger import OpsLogger
 from ..toolkits.random_algos import RandAlgoGoldenPrime, create_rand_algo
 from ..toolkits.rate_limiter import RateLimiter
 from ..utils.native import (ENGINE_CODES, NativeStreamError,
@@ -164,6 +174,9 @@ class LocalWorker(Worker):
             self._rate_limiter_read = RateLimiter(cfg.limit_read_bps)
         if cfg.limit_write_bps:
             self._rate_limiter_write = RateLimiter(cfg.limit_write_bps)
+        if cfg.ops_log_path:
+            self._ops_log = OpsLogger(cfg.ops_log_path, self.rank,
+                                      use_lock=cfg.ops_log_lock)
 
     def cleanup(self) -> None:
         if self._gpu is not None:
@@ -176,6 +189,9 @@ class LocalWorker(Worker):
                 self._staging_pool.leak()
             self._staging_pool.close()
             self._staging_pool = None
+        if self._ops_log is not None:
+            self._ops_log.close()
+            self._ops_log = None
 
     # ------------------------------------------------------------------
     # phase loop (reference: LocalWorker::run, LocalWorker.cpp:193-418)
@@ -314,25 +330,27 @@ class LocalWorker(Worker):
             path = os.path.join(
                 self._bench_path_for_dir(dir_idx),
                 self.dir_rel_path_for(self.rank, dir_idx, cfg.do_dir_sharing))
-            t0 = time.perf_counter_ns()
-            if phase == BenchPhase.CREATEDIRS:
-                os.makedirs(path, MKDIR_MODE, exist_ok=True)
-            elif phase == BenchPhase.DELETEDIRS:
-                try:
-                    os.rmdir(path)
-                    parent = os.path.dirname(path)
-                    if os.path.basename(parent).startswith("r"):
-                        try:
-                            os.rmdir(parent)  # remove empty rank dir
-                        except OSError:
-                            pass
-                except FileNotFoundError:
-                    if not self._partial_tolerance(phase):
-                        raise
-            else:  # STATDIRS
-                os.stat(path)
-            self.entries_latency_histo.add_latency(
-                (time.perf_counter_ns() - t0) // 1000)
+            with self.oplog(phase.name.lower(), path) as op_rec:
+                t0 = time.perf_counter_ns()
+                if phase == BenchPhase.CREATEDIRS:
+                    os.makedirs(path, MKDIR_MODE, exist_ok=True)
+                elif phase == BenchPhase.DELETEDIRS:
+                    try:
+                        os.rmdir(path)
+                        parent = os.path.dirname(path)
+                        if os.path.basename(parent).startswith("r"):
+                            try:
+                                os.rmdir(parent)  # remove empty rank dir
+                            except OSError:
+                                pass
+                    except FileNotFoundError:
+                        if not self._partial_tolerance(phase):
+                            raise
+                        op_rec.error = True
+                else:  # STATDIRS
+                    os.stat(path)
+                lat_usec = (time.perf_counter_ns() - t0) // 1000
+            self.entries_latency_histo.add_latency(lat_usec)
             self.live_ops.num_entries_done += 1
 
     def _dir_mode_iterate_files(self, phase: BenchPhase) -> None:
@@ -346,29 +364,37 @@ class LocalWorker(Worker):
                 self.check_interruption_request(force=True)
                 path = os.path.join(base, self.file_rel_path_for(
                     self.rank, dir_idx, file_idx, cfg.do_dir_sharing))
-                t0 = time.perf_counter_ns()
-                if phase == BenchPhase.CREATEFILES:
-                    self._write_one_file(path)
-                elif phase == BenchPhase.READFILES:
-                    self._read_one_file(path)
-                elif phase == BenchPhase.STATFILES:
-                    os.stat(path)
-                elif phase == BenchPhase.DELETEFILES:
-                    try:
-                        os.unlink(path)
-                    except FileNotFoundError:
-                        if not self._partial_tolerance(phase):
-                            raise
-                self.entries_latency_histo.add_latency(
-                    (time.perf_counter_ns() - t0) // 1000)
+                with self.oplog(phase.name.lower(), path) as op_rec:
+                    t0 = time.perf_counter_ns()
+                    if phase == BenchPhase.CREATEFILES:
+                        self._write_one_file(path)
+                    elif phase == BenchPhase.READFILES:
+                        self._read_one_file(path)
+                    elif phase == BenchPhase.STATFILES:
+                        os.stat(path)
+                    elif phase == BenchPhase.DELETEFILES:
+                        try:
+                            os.unlink(path)
+                        except FileNotFoundError:
+                            if not self._partial_tolerance(phase):
+                                raise
+                            op_rec.error = True
+                    lat_usec = (time.perf_counter_ns() - t0) // 1000
+                self.entries_latency_histo.add_latency(lat_usec)
                 self.live_ops.num_entries_done += 1
+
+    def _open_flags_write(self) -> int:
+        """A write opens read-write where the same fd also reads: the
+        --rwmixpct reads and the --readinline/--verifydirect read-back."""
+        cfg = self.cfg
+        if cfg.rwmix_read_pct or cfg.do_read_inline or cfg.do_direct_verify:
+            return os.O_RDWR | os.O_CREAT
+        return os.O_WRONLY | os.O_CREAT
 
     def _write_one_file(self, path: str) -> None:
         cfg = self.cfg
-        # the reads of --rwmixpct go through the same fd
-        flags = os.O_RDWR if cfg.rwmix_read_pct else os.O_WRONLY
         try:
-            fd = os.open(path, flags | os.O_CREAT, MKFILE_MODE)
+            fd = os.open(path, self._open_flags_write(), MKFILE_MODE)
         except FileNotFoundError as err:
             if not cfg.run_create_dirs:
                 # parity hint (reference: dirModeOpenAndPrepFile :7395)
@@ -578,12 +604,14 @@ class LocalWorker(Worker):
                 """One positional I/O attempt; a short transfer raises
                 the (transient) ShortIOError, so --ioretries covers it.
                 The latency is the successful attempt's, without the
-                backoff."""
+                backoff; under --flock it includes the lock wait, as in
+                the engine."""
                 t0 = time.perf_counter_ns()
-                if do_read:
-                    n = os.preadv(fd, [buf[:length]], off)
-                else:
-                    n = os.pwritev(fd, [buf[:length]], off)
+                with (FileRangeLock(fd, cfg.use_file_locks, off, length,
+                                    is_write=not do_read)
+                      if cfg.use_file_locks else contextlib.nullcontext()):
+                    n = (os.preadv if do_read else os.pwritev)(
+                        fd, [buf[:length]], off)
                 if n != length:
                     raise ShortIOError(do_read, off, n, length)
                 return n, (time.perf_counter_ns() - t0) // 1000
@@ -592,8 +620,13 @@ class LocalWorker(Worker):
                 n, lat_usec = self._with_retries(one_op)
             except ShortIOError as err:
                 raise WorkerException(str(err)) from None
+            if self._ops_log is not None:
+                self._ops_log.log_op("read" if do_read else "write", "",
+                                     off, length)
             if do_read:
                 self._post_read_actions(buf, off, length)
+            elif cfg.do_read_inline or cfg.do_direct_verify:
+                self._inline_read_back(fd, buf, off, length)
             mixed_read = is_write and do_read  # a --rwmixpct read
             (self.iops_latency_histo_rwmix if mixed_read
              else self.iops_latency_histo).add_latency(lat_usec)
@@ -646,13 +679,20 @@ class LocalWorker(Worker):
     def _native_loop_blocker(self) -> "str | None":
         """Why the native block loop cannot serve a phase without a
         device (None = it can): the per-op Python features it lacks.
-        Verify, the --rwmixpct split, the "fast" --blockvarpct refill
-        and the rate limits run inside the engine (BlockMod)."""
+        Verify, the --rwmixpct split, the "fast" --blockvarpct refill,
+        the rate limits and the --opslog block records run inside the
+        engine (BlockMod); so do the --flock locks and the read-back of
+        --readinline/--verifydirect, in its sync loop only."""
         cfg = self.cfg
         if self.shared.rwmix_balancer is not None:
             return "--rwmixthr byte-ratio balancer"
         if cfg.block_variance_pct and cfg.block_variance_algo != "fast":
             return "non-'fast' --blockvaralgo"
+        sync_path = cfg.io_depth <= 1 and cfg.io_engine in ("auto", "sync")
+        if not sync_path and (cfg.use_file_locks or cfg.do_read_inline
+                              or cfg.do_direct_verify):
+            return ("per-op locks and read-back of --flock/--readinline/"
+                    "--verifydirect, which need the sync engine")
         return None
 
     # ------------------------------------------------------------------
@@ -680,8 +720,14 @@ class LocalWorker(Worker):
                 return "per-file stream too short to amortize ring setup"
         if not native.stream_supported():
             return "kernel lacks both io_uring and AIO"
+        if self._ops_log is not None:
+            return "--opslog per-op records"
         if self.shared.rwmix_balancer is not None:
             return "--rwmixthr byte-ratio balancer"
+        if cfg.use_file_locks:
+            return "--flock per-op locks"
+        if cfg.do_read_inline or cfg.do_direct_verify:
+            return "--readinline/--verifydirect inline read-back"
         if self._rate_limiter_read or self._rate_limiter_write:
             return "per-op rate limits"
         if cfg.io_engine != "auto" and \
@@ -929,7 +975,13 @@ class LocalWorker(Worker):
                     block_var_seed=self._block_var_seed(),
                     limit_read_bps=cfg.limit_read_bps,
                     limit_write_bps=cfg.limit_write_bps,
-                    rl_state=self._native_rl_state)
+                    rl_state=self._native_rl_state,
+                    inline_readback=(cfg.do_read_inline
+                                     or cfg.do_direct_verify),
+                    flock_mode=self._flock_mode_code(),
+                    ops_fd=(self._ops_log.fd if self._ops_log is not None
+                            else -1),
+                    ops_lock=cfg.ops_log_lock)
 
             try:
                 # --ioretries: a transient chunk failure runs the whole
@@ -1049,6 +1101,10 @@ class LocalWorker(Worker):
         """The engine's --blockvarpct refill seed, per worker and chunk."""
         return (self.rank << 32) ^ self._num_iops_submitted
 
+    def _flock_mode_code(self) -> int:
+        """--flock mode for the engine: 0 none, 1 range, 2 full."""
+        return {"": 0, "range": 1, "full": 2}[self.cfg.use_file_locks]
+
     # -- write-side block content -------------------------------------------
 
     def _pre_write_fill(self, buf: memoryview, offset: int,
@@ -1094,6 +1150,20 @@ class LocalWorker(Worker):
                 f"data integrity check failed at file offset "
                 f"{offset + first * 8}: expected {int(want[first]):#x}, "
                 f"got {int(got[first]):#x}")
+
+    def _inline_read_back(self, fd: int, buf: memoryview, offset: int,
+                          length: int) -> None:
+        """--readinline/--verifydirect: read the block straight back into
+        its slot after the write, and verify it on the host under
+        --verify (reference: pwriteAndReadWrapper, LocalWorker.cpp:2566).
+        Neither counted nor timed, as in the engine. With a device the
+        slot was the D2H copy's destination, complete before the write
+        was issued, so nothing else reads or writes it here."""
+        n = os.preadv(fd, [buf[:length]], offset)
+        if n != length:
+            raise WorkerException(f"short inline read-back at {offset}")
+        if self.cfg.integrity_check_salt:
+            self._verify_read_buf(buf, offset, length)
 
     # -- read-side block actions --------------------------------------------
 
