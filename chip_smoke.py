@@ -8,7 +8,10 @@ without printing a result otherwise. In order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the build times of the kernel and of the native I/O
-   engine (csrc/ioengine.cpp, g++);
+   engine (csrc/ioengine.cpp, g++); opens and closes the engine's stream
+   ring from several threads at once, as a phase's workers do, and
+   fails if an open is refused (printing beside it how many opens the
+   kernel refuses when the wrapper does not serialize them);
 2. builds the fingerprint kernel (csrc/fingerprint.cu) with nvcc and holds
    it against its plain PyTorch version on the card, exactly (tolerance 0:
    addition mod 2^32 and xor do not depend on order), at several word
@@ -64,7 +67,7 @@ without printing a result otherwise. In order it:
    training-ingest dataset of the JAX package's `--scenario epochs`
    example (dir mode, 8 x 64 files of 16 MiB, docs/scenarios.md), with a
    corrupted file that the verify read must refuse; and a lots-of-small-
-   files run (8 threads x 16 dirs x 512 files of 4 KiB through all six
+   files run (8 threads x 16 dirs x 256 files of 4 KiB through all six
    phases, toward the reference's LOSF sweep in BASELINE.md, cut to fit
    the smoke's time); each checks its entries, bytes, device copies and
    kernel launches, and prints which block loop it took (the dataset's
@@ -176,7 +179,21 @@ without printing a result otherwise. In order it:
    each run's loop and MiB/s beside its twin's (the same run without
    the feature, through the ring where it is eligible) and the pass's
    wall time, which must stay within BLOCKMOD_LIMIT_S (90 s);
-17. prints the kernel line {"kernels": [...]} and, last, the result line
+17. the engine's per-file loop and the custom trees (tree_pass), after
+   the small-files pass of 8 and before 11: (a) the small-files run
+   without a device (-t 8 -n 16 -N 64 -s 4K -b 4K --verify 7 through
+   all six phases), which the engine's per-file loop must serve, its
+   entries/s printed beside the device run's; (b) a tree of 64 files
+   (two shared files of 512 and 528 MiB, 62 small ones from 0 bytes to
+   16 MiB, most not a multiple of 4 KiB) scanned with --treescan and
+   checked, then -w -r --verify 7 --gpuverify --gpuids 0 -t 2 -b 16M
+   --iodepth 4 --treefile, staged and --gpudirect, --treeroundrob, and
+   a --treerand read, each with the tree's bytes, the sublists'
+   entries, one launch per block read and, exactly, the fused ring's
+   ops of the ranges at least two ring-fills long, then -F; prints
+   each run's loop and MiB/s and the pass's wall time, which must stay
+   within TREE_LIMIT_S (90 s);
+18. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -210,7 +227,8 @@ MAIN_SIZE = 4 << 30            # -s 4g
 MAIN_BLOCKS = MAIN_SIZE // MAIN_BLOCK
 HBM_BYTES_PER_SEC = 3.35e12    # H100 SXM device memory, NVIDIA data sheet
 DATASET_FILES = 8 * 64          # -t 8 -n 1 -N 64 of 16 MiB: 8 GiB
-LOSF_FILES = 8 * 16 * 512      # -t 8 -n 16 -N 512 of 4 KiB
+LOSF_PER_DIR = 256             # -N: files per directory of the LOSF pass
+LOSF_FILES = 8 * 16 * LOSF_PER_DIR  # -t 8 -n 16 of 4 KiB
 TIME_LIMIT_S = 1200            # the whole run, kernel build included
 KERNEL_WORD_COUNTS = (1, 127, 128, 256, 1024, 4097, 262144, 4 << 20,
                       64 << 20)
@@ -524,6 +542,75 @@ def check_registered_slot(dev) -> None:
     finally:
         ctx.close()
         pool.close()
+
+
+RACE_THREADS = 4               # threads of the ring setup check
+RACE_ROUNDS = 250              # stream opens and closes per thread
+
+
+def ring_setup_race(engine, path: str, serialized: bool) -> int:
+    """RACE_THREADS threads each open and close a stream ring over two
+    slots of their own RACE_ROUNDS times, at once; returns the opens
+    refused. Not `serialized`, the wrapper's lock around the AIO-context
+    calls is lifted for the run."""
+    from elbencho_tpu_torch.utils import native
+    from elbencho_tpu_torch.utils.staging_pool import StagingPool
+    fd = os.open(path, os.O_RDONLY)
+    pools = [StagingPool(2, 4096) for _ in range(RACE_THREADS)]
+    refused = []
+    lock = native._aio_ctx_lock
+    if not serialized:
+        native._aio_ctx_lock = contextlib.nullcontext()
+
+    def opener(pool):
+        for _ in range(RACE_ROUNDS):
+            try:
+                stream = engine.open_stream([fd], pool.slot_addrs, 4096)
+            except OSError as err:
+                refused.append(err)
+                continue
+            if stream.close() != 0:
+                refused.append("drain")
+    threads = [threading.Thread(target=opener, args=(pool,))
+               for pool in pools]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        native._aio_ctx_lock = lock
+        os.close(fd)
+        for pool in pools:
+            pool.close()
+    if "drain" in refused:
+        fail("a stream ring of the setup check did not drain at close")
+    return len(refused)
+
+
+def check_ring_setup(engine, work: str) -> None:
+    """A phase's workers open and close their stream rings at the same
+    time (one per file in dir mode and in a custom tree). On a kernel
+    whose io_destroy unmaps a context's ring page before it retires the
+    context (gVisor, which reports Linux 4.4.0), another thread's
+    io_setup can map that page and fail with EINVAL; the wrapper
+    serializes those calls. Fails on a refused open; prints how many the
+    kernel refuses without the wrapper's lock."""
+    path = os.path.join(work, "ring_setup.bin")
+    with open(path, "wb") as f:
+        f.write(bytes(8192))
+    t0 = time.monotonic()
+    bare = ring_setup_race(engine, path, serialized=False)
+    locked = ring_setup_race(engine, path, serialized=True)
+    os.unlink(path)
+    print(f"ring setup check on Linux {os.uname().release}: "
+          f"{RACE_THREADS} threads x {RACE_ROUNDS} stream opens and closes "
+          f"each, backend {engine.stream_backend_name()}: {bare} refused "
+          f"without the wrapper's lock, {locked} with it "
+          f"({time.monotonic() - t0:.2f} s)")
+    if locked:
+        fail(f"{locked} stream ring opens refused while the wrapper "
+             f"serialized the AIO-context calls")
 
 
 def run_cli(args: "list[str]", json_path: str,
@@ -865,15 +952,16 @@ def dataset_pass(work: str) -> int:
     return launches
 
 
-def losf_pass(work: str) -> int:
+def losf_pass(work: str) -> "tuple[int, dict]":
     """Lots of small files through all six phases; returns the READ's
-    fingerprint launches."""
+    fingerprint launches and each phase's entries/s."""
     bench = os.path.join(work, "losf")
     os.makedirs(bench)
     name = "lots of small files, dir mode"
     recs, launches = run_pass(
         name, ["-d", "-w", "--stat", "-r", "-F", "-D", "-t", "8", "-n", "16",
-               "-N", "512", "-s", "4K", "-b", "4K", "--verify", "7",
+               "-N", str(LOSF_PER_DIR), "-s", "4K", "-b", "4K", "--verify",
+               "7",
                "--gpuverify", "--gpuids", "0", bench],
         os.path.join(work, "losf.json"),
         ["MKDIRS", "WRITE", "STAT", "READ", "RMFILES", "RMDIRS"])
@@ -888,7 +976,7 @@ def losf_pass(work: str) -> int:
         f"{r['Phase']} {r['EntriesPerSecLast']}" for r in recs))
     if os.listdir(bench):
         fail("the LOSF directory is not empty after RMDIRS")
-    return launches
+    return launches, {r["Phase"]: r["EntriesPerSecLast"] for r in recs}
 
 
 #: an H100's host link, PCIe Gen5 x16: 32 GT/s x 16 lanes x 128/130 / 8
@@ -2090,7 +2178,8 @@ def fault_pass(work: str) -> int:
     t_start = time.monotonic()
     path = os.path.join(work, "smoke.bin")
     json_path = os.path.join(work, "fault.json")
-    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4",
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth",
+              str(TREE_IODEPTH),
               "--gpuids", "0"]
     retries = ["--ioretries", "3"]
     os.environ["ELBENCHO_TPU_TESTING"] = "1"
@@ -2607,7 +2696,8 @@ def blockmod_pass(work: str) -> int:
     ops_path = os.path.join(work, "blockmod.jsonl")
     json_path = os.path.join(work, "blockmod.json")
     blocks = BLOCKMOD_SIZE // MAIN_BLOCK
-    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4",
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth",
+              str(TREE_IODEPTH),
               "-s", f"{BLOCKMOD_SIZE >> 20}M"]
     dev = ["--gpuids", "0"]
     verify = ["--verify", "7"]
@@ -2747,6 +2837,211 @@ def blockmod_pass(work: str) -> int:
     return total
 
 
+HOST_LOSF_FILES = 8 * 16 * 64  # -t 8 -n 16 -N 64 of 4 KiB, no device
+TREE_LIMIT_S = 90              # the most the tree pass may take
+TREE_SHARE = 32 << 20          # --sharesize: -b 16M x 2 dataset threads
+TREE_IODEPTH = 4               # the tree runs' --iodepth
+#: the tree's two shared files: 32 blocks, and 33 blocks and a short one
+TREE_BIG = {"big0": 512 << 20, "big1": (528 << 20) + 4361}
+TREE_SMALL_STEP = 4361         # small file i holds i * i * this many bytes
+
+
+@contextlib.contextmanager
+def file_loop_calls():
+    """The (op, number of paths) of every call into the native engine's
+    per-file loop while the block runs."""
+    from elbencho_tpu_torch.utils.native import _NativeEngine
+    real = _NativeEngine.run_file_loop
+    calls = []
+
+    def spy(self, paths, op, *args, **kwargs):
+        calls.append((op, len(paths)))
+        return real(self, paths, op, *args, **kwargs)
+
+    _NativeEngine.run_file_loop = spy
+    try:
+        yield calls
+    finally:
+        _NativeEngine.run_file_loop = real
+
+
+def tree_sizes() -> "dict[str, int]":
+    """The custom tree of the tree pass: the two shared files and 62 small
+    ones from 0 bytes to just under 16 MiB in four subdirectories, most
+    of them not a multiple of 4 KiB; about 1.35 GiB in all."""
+    sizes = dict(TREE_BIG)
+    for i in range(62):
+        sizes[f"s/d{i % 4}/f{i}"] = i * i * TREE_SMALL_STEP
+    return sizes
+
+
+def tree_pass(work: str, device_losf_rates: dict) -> int:
+    """The engine's per-file loop and the custom trees; returns the
+    fingerprint launches. Each run's loop, MiB/s and the pass's wall time
+    are printed, and the pass must end within TREE_LIMIT_S.
+
+    (a) The lots-of-small-files run without a device (-d -w --stat -r -F
+        -D -t 8 -n 16 -N 64 -s 4K -b 4K --verify 7): the engine's
+        per-file loop serves WRITE, STAT, READ and RMFILES (a spy on
+        run_file_loop), 8192 entries per file phase, 128 per dir phase,
+        the directory empty after RMDIRS; each phase's entries/s beside
+        the device LOSF pass's.
+    (b) A custom tree at the main path's width: a directory of tree_sizes()
+        (sparse files) scanned with --treescan into a tree file, checked
+        against the directory; then -w -r --verify 7 --gpuverify --gpuids
+        0 -t 2 -b 16M --iodepth 4 --treefile T into an empty bench dir,
+        staged and --gpudirect, then -w -r under --treeroundrob and a
+        --treerand read of what it wrote (each shared file whole and
+        verified), and -F, which leaves only directories. Each run books
+        the tree's bytes in WRITE and READ, the sublists' elements as
+        entries, one launch per block read, and exactly the blocks of the
+        ranges at least two ring-fills long as the fused ring's ops."""
+    from elbencho_tpu_torch.toolkits.path_store import PathStore
+    t_start = time.monotonic()
+
+    print("tree pass (a): lots of small files without a device")
+    bench = os.path.join(work, "losf-host")
+    os.makedirs(bench)
+    name = "lots of small files, no device"
+    with file_loop_calls() as calls:
+        recs, _ = run_pass(
+            name, ["-d", "-w", "--stat", "-r", "-F", "-D", "-t", "8", "-n",
+                   "16", "-N", "64", "-s", "4K", "-b", "4K", "--verify", "7",
+                   bench],
+            os.path.join(work, "losf-host.json"),
+            ["MKDIRS", "WRITE", "STAT", "READ", "RMFILES", "RMDIRS"],
+            on_device=False)
+    served = {op for op, _ in calls}
+    if served != {"write", "stat", "read", "unlink"}:
+        fail(f"pass '{name}': the engine's per-file loop served {served}, "
+             f"want write, stat, read and unlink")
+    for rec in recs:
+        want = 8 * 16 if rec["Phase"] in ("MKDIRS", "RMDIRS") \
+            else HOST_LOSF_FILES
+        expect(name, rec, EntriesLast=want)
+    if os.listdir(bench):
+        fail(f"pass '{name}': the directory is not empty after RMDIRS")
+    print(f"  per-file loop: {len(calls)} engine calls")
+    for rec in recs:
+        print(f"  {rec['Phase']:<8} {rec['EntriesPerSecLast']} entries/s "
+              f"without a device, {device_losf_rates[rec['Phase']]} with "
+              f"--gpuids 0 --gpuverify (the device LOSF pass, -N "
+              f"{LOSF_PER_DIR})")
+
+    print("tree pass (b): a custom tree at -t 2 -b 16M --iodepth 4")
+    src = os.path.join(work, "tree-src")
+    sizes = tree_sizes()
+    for rel, size in sizes.items():
+        path = os.path.join(src, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.truncate(size)  # sparse: the scan reads sizes only
+    tree_file = os.path.join(work, "tree.txt")
+    rc, _ = run_cli(["--treescan", src, "--treefile", tree_file],
+                    os.path.join(work, "treescan.json"))
+    if rc != 0:
+        fail(f"--treescan exited {rc}")
+    scanned, scanned_dirs = PathStore(), PathStore()
+    scanned.load_files_from_file(tree_file)
+    with open(tree_file) as f:
+        scanned_dirs.load_dirs_from_text(f.read())
+    want_dirs = 1 + 4  # s, s/d0 .. s/d3
+    total = scanned.total_bytes
+    if scanned.num_paths != len(sizes) or total != sum(sizes.values()) \
+            or scanned_dirs.num_paths != want_dirs:
+        fail(f"--treescan wrote {scanned.num_paths} files of {total} bytes "
+             f"and {scanned_dirs.num_paths} dirs, want {len(sizes)} files "
+             f"of {sum(sizes.values())} bytes and {want_dirs} dirs")
+    print(f"  --treescan: {scanned.num_paths} files, {total} bytes, "
+          f"{want_dirs} dirs")
+    shutil.rmtree(src)
+
+    def shares(round_robin: bool, rand: bool) -> "tuple[int, int]":
+        """The elements of both workers' sublists (the port's PathStore,
+        as the workers split the tree) and the fused ring's ops: the
+        blocks of each range that holds at least two ring-fills."""
+        store = PathStore(block_size=MAIN_BLOCK)
+        store.load_files_from_file(tree_file)
+        if rand:
+            store.random_shuffle(seed=42)
+        else:
+            store.sort_by_path_len()
+        non_shared, shared = store.split_by_share_size(TREE_SHARE)
+        sub = shared.get_worker_sublist_shared_round_robin if round_robin \
+            else shared.get_worker_sublist_shared
+        elems = [e for r in range(2)
+                 for e in (non_shared.get_worker_sublist_non_shared(r, 2)
+                           .elems + sub(r, 2).elems)]
+        if sum(e.range_len for e in elems) != total:
+            fail(f"the workers' shares of the tree hold "
+                 f"{sum(e.range_len for e in elems)} bytes, want {total}")
+        ring = sum(-(-e.range_len // MAIN_BLOCK) for e in elems
+                   if e.range_len // MAIN_BLOCK >= 2 * TREE_IODEPTH)
+        return len(elems), ring
+
+    blocks = sum((n + MAIN_BLOCK - 1) // MAIN_BLOCK for n in sizes.values())
+    tree_bench = os.path.join(work, "tree")
+    os.makedirs(tree_bench)
+    common = ["-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth",
+              str(TREE_IODEPTH),
+              "--verify", "7", "--gpuverify", "--gpuids", "0",
+              "--treefile", tree_file]
+    launches = 0
+    for label, flags, phases in (
+            ("staged", [], ["-w", "-r"]),
+            ("--gpudirect", ["--gpudirect"], ["-w", "-r"]),
+            ("--treeroundrob --gpudirect", ["--treeroundrob", "--gpudirect"],
+             ["-w", "-r"]),
+            ("--treerand --gpudirect", ["--treerand", "--gpudirect"],
+             ["-r"])):
+        name = f"custom tree {' '.join(phases)}, {label}"
+        want_phases = [{"-w": "WRITE", "-r": "READ"}[p] for p in phases]
+        t0 = time.monotonic()
+        with file_loop_calls() as calls:
+            recs, got = run_pass(name, [*phases, *common, *flags,
+                                        tree_bench],
+                                 os.path.join(work, "tree.json"),
+                                 want_phases)
+        secs = time.monotonic() - t0
+        launches += got
+        if calls:
+            fail(f"pass '{name}': a device phase called the engine's "
+                 f"per-file loop")
+        want_entries, want_ring = shares("--treeroundrob" in flags,
+                                         "--treerand" in flags)
+        for rec in recs:
+            expect(name, rec, BytesLast=total, TpuHbmBytes=total,
+                   EntriesLast=want_entries, TpuStreamFusedOps=want_ring,
+                   ops=blocks, device_ops=blocks)
+            print(f"  {name} {rec['Phase']}: {loop_taken(rec)}, "
+                  f"{rec['MiBPerSecLast']} MiB/s")
+        if got != blocks:
+            fail(f"pass '{name}': {got} fingerprint launches, want {blocks} "
+                 f"(one per block read)")
+        print(f"  {name}: {secs:.1f} s")
+        for rel, size in TREE_BIG.items():
+            got_size = os.path.getsize(os.path.join(tree_bench, rel))
+            if got_size != size:
+                fail(f"pass '{name}': shared file {rel} is {got_size} "
+                     f"bytes, want {size}")
+
+    name = "custom tree -F"
+    recs, _ = run_pass(name, ["-F", *common, tree_bench],
+                       os.path.join(work, "tree.json"), ["RMFILES"])
+    expect(name, recs[0], EntriesLast=len(sizes))
+    left = [os.path.join(d, f) for d, _, fs in os.walk(tree_bench)
+            for f in fs]
+    if left:
+        fail(f"pass '{name}' left files behind: {left[:5]}")
+    shutil.rmtree(tree_bench)
+    os.unlink(tree_file)
+    secs = time.monotonic() - t_start
+    print(f"tree pass: {secs:.1f} s, {launches} fingerprint launches")
+    if secs > TREE_LIMIT_S:
+        fail(f"the tree pass took {secs:.1f} s, over its {TREE_LIMIT_S} s")
+    return launches
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -2831,6 +3126,7 @@ def main() -> int:
         fail(f"{work} has {free >> 20} MiB free; the dataset pass needs "
              f"{need >> 20} MiB (its 8 GiB plus 1 GiB of headroom)")
     try:
+        check_ring_setup(engine, work)
         untraced: "dict[str, float]" = {}
         launches = main_path(work, untraced)
         headline_pass(work, engine.stream_backend_name(), untraced)
@@ -2852,7 +3148,9 @@ def main() -> int:
         os.unlink(os.path.join(work, "smoke.bin"))
         launches += striped_pass(work)
         launches += dataset_pass(work)
-        launches += losf_pass(work)
+        losf_launches, losf_rates = losf_pass(work)
+        launches += losf_launches
+        launches += tree_pass(work, losf_rates)
         launches += entry_pass(dev)
         kernel["launches"] = launches
     finally:

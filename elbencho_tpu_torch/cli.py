@@ -25,6 +25,12 @@ source/Main.cpp:14-69): parse args, validate, run the local coordinator.
     python -m elbencho_tpu_torch -r -t 2 -b 16M --iodepth 4 --gpuids 0 \\
         --lat --latpercent --lathisto --allelapsed --cpu \\
         --resfile res.txt --csvfile res.csv --jsonfile res.json /path/file
+    # custom tree: scan a real tree into a tree file, then run it (files
+    # of 32 MiB and more are shared by the workers, block by block)
+    python -m elbencho_tpu_torch --treescan /path/src --treefile tree.txt
+    python -m elbencho_tpu_torch -w -r -t 2 -b 16M --iodepth 4 \\
+        --gpuids 0 --treefile tree.txt [--treerand] [--treeroundrob] \\
+        [--sharesize 32M] /path/dir
     # live statistics: a line every 500 ms (fullscreen per-worker view on
     # a terminal without --live1/--live1n), and the live CSV and JSON
     python -m elbencho_tpu_torch -r -t 2 -b 16M --iodepth 4 --gpuids 0 \\
@@ -59,6 +65,35 @@ def _print_dry_run(cfg) -> None:
               f"{format_bytes(num_bytes)}B")
 
 
+def _run_tree_scan(cfg) -> int:
+    """--treescan DIR --treefile OUT: write a tree file of a real
+    directory tree (reference: --treescan and tools/elbencho-scan-path).
+    The JAX package also lists an s3:// or gs:// bucket; that needs the
+    object back ends, which the port does not have yet."""
+    import os
+    from .toolkits.file_tk import scan_tree, write_treefile
+    if not cfg.tree_file_path:
+        print("ERROR: --treescan requires --treefile OUT for the result",
+              file=sys.stderr)
+        return 1
+    if cfg.tree_scan_path.startswith(("s3://", "gs://")):
+        print(f"ERROR: --treescan of a bucket needs the S3/GCS object back "
+              f"ends, which this port does not have yet: "
+              f"{cfg.tree_scan_path}", file=sys.stderr)
+        return 1
+    if not os.path.isdir(cfg.tree_scan_path):
+        print(f"ERROR: --treescan path is not a directory: "
+              f"{cfg.tree_scan_path}", file=sys.stderr)
+        return 1
+    dirs, files, needs_b64 = scan_tree(cfg.tree_scan_path)
+    write_treefile(cfg.tree_file_path, dirs, files, use_base64=needs_b64)
+    total = sum(e.total_len for e in files.elems)
+    print(f"Scanned {cfg.tree_scan_path}: {dirs.num_paths} dirs, "
+          f"{files.num_paths} files, {format_bytes(total)}B total -> "
+          f"{cfg.tree_file_path}")
+    return 0
+
+
 def main(argv: "list[str] | None" = None,
          device: "str | None" = None) -> int:
     """Run the benchmark. ``device`` overrides where the device contexts
@@ -73,7 +108,7 @@ def main(argv: "list[str] | None" = None,
         print(f"elbencho-tpu-torch {__version__} (PyTorch/CUDA device "
               f"data path)")
         return 0
-    if not cfg.paths and not cfg.run_gpu_bench:
+    if not cfg.paths and not (cfg.run_gpu_bench or cfg.tree_scan_path):
         build_arg_parser().print_help()
         return 1
     try:
@@ -89,6 +124,8 @@ def main(argv: "list[str] | None" = None,
         except (ValueError, OSError) as err:
             print(f"ERROR: {err}", file=sys.stderr)
             return 1
+    if cfg.tree_scan_path:
+        return _run_tree_scan(cfg)
     if cfg.do_dry_run:
         _print_dry_run(cfg)
         return 0

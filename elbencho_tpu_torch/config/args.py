@@ -29,9 +29,11 @@ the data-plane fault tolerance flags (``--ioretries``,
 (``--rwmixpct``, ``--rwmixthr``, ``--rwmixthrpct``, ``--limitread``,
 ``--limitwrite``, ``--blockvarpct``, ``--blockvaralgo``) and the
 engine's last per-op features (``--flock``, ``--opslog``,
-``--opsloglock``, ``--readinline``, ``--verifydirect``). Custom trees,
-the other storage back ends and the remaining flags are later slices
-(ROADMAP.md queue A).
+``--opsloglock``, ``--readinline``, ``--verifydirect``) and the custom
+trees (``--treefile``, ``--treerand``, ``--treeroundrob``,
+``--treeroundup``, ``--sharesize``, ``--treescan``). The other storage
+back ends (and with them the bucket scan of ``--treescan``) and the
+remaining flags are later slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -250,6 +252,20 @@ FLAG_DEFS = [
      "Serialize ops log writes via file lock (for shared-file logs)"),
     ("configfile", "c", "config_file_path", "str", "",
      "Read benchmark settings from this file (ini-style: flag = value)"),
+    # custom tree
+    ("treefile", None, "tree_file_path", "str", "",
+     "Path to custom tree file (see elbencho-tpu-scan-path)"),
+    ("treerand", None, "use_custom_tree_rand", "bool", False,
+     "Randomize custom tree file order"),
+    ("treeroundrob", None, "use_custom_tree_round_robin", "bool", False,
+     "Round-robin block assignment for shared custom tree files"),
+    ("treeroundup", None, "tree_round_up_size", "size", 0,
+     "Round file sizes in tree file up to multiple of this"),
+    ("sharesize", None, "file_share_size", "size", 0,
+     "Custom tree: files >= this size are shared between workers"),
+    ("treescan", None, "tree_scan_path", "str", "",
+     "Scan this directory tree — or an s3://bucket[/prefix] / gs:// "
+     "bucket — and write a treefile (with --treefile OUT)"),
 ]
 
 #: --gpubench patterns: host<->device copies, and the collectives

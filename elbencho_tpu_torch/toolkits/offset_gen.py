@@ -1,7 +1,7 @@
 """Offset generators for the block I/O loop.
 
 Reference: source/toolkits/offsetgen/OffsetGenerator.h (Sequential :48,
-RandomAligned :252) and OffsetGenRandomAlignedFullCoverageV2.h (LCG
+RandomAligned :252, Strided :323) and OffsetGenRandomAlignedFullCoverageV2.h (LCG
 permutation over block indices, power-of-2 modulus — the default for
 aligned random *writes* so every block is hit exactly once).
 
@@ -73,6 +73,44 @@ class OffsetGenSequential(OffsetGenerator):
         offs = (np.uint64(self.start + self._pos)
                 + np.arange(k, dtype=np.uint64) * np.uint64(self.block_size))
         self._pos += int(lens.sum())
+        return offs, lens
+
+
+class OffsetGenStrided(OffsetGenerator):
+    """Strided offsets: the first block at ``start``, then every
+    block_size*num_dataset_threads bytes on, until num_bytes are done;
+    the final block may be short (reference: OffsetGenerator.h:323-378).
+    The round-robin share of a --treeroundrob file reads its blocks with
+    it."""
+
+    def __init__(self, num_bytes: int, block_size: int,
+                 num_dataset_threads: int, start: int = 0):
+        if block_size <= 0:
+            raise ValueError("block_size must be > 0")
+        self.num_bytes = num_bytes
+        self.block_size = block_size
+        self.stride = block_size * num_dataset_threads
+        self._bytes_done = 0
+        self._off = start
+
+    def next_block(self):
+        if self._bytes_done >= self.num_bytes:
+            return None
+        length = min(self.block_size, self.num_bytes - self._bytes_done)
+        off = self._off
+        self._off += self.stride
+        self._bytes_done += length
+        return (off, length)
+
+    def next_batch(self, max_n: int):
+        if self._bytes_done >= self.num_bytes:
+            return None
+        k, lens = self._batch_lens(max_n, self.num_bytes - self._bytes_done,
+                                   self.block_size)
+        offs = (np.uint64(self._off)
+                + np.arange(k, dtype=np.uint64) * np.uint64(self.stride))
+        self._off += k * self.stride
+        self._bytes_done += int(lens.sum())
         return offs, lens
 
 

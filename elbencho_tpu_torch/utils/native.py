@@ -1,14 +1,17 @@
 """ctypes wrapper of the native C++ I/O engine (csrc/ioengine.cpp).
 
 Reference: elbencho_tpu/utils/native.py, cut to what the port calls: the
-streaming ring of the fused ``--gpustream`` loop (``NativeStream``) and
-the classic block loop of phases without a device (``run_block_loop``).
+streaming ring of the fused ``--gpustream`` loop (``NativeStream``), the
+classic block loop of phases without a device (``run_block_loop``), and
+the per-file loop of dir mode and custom trees without a device
+(``run_file_loop``: open, blocks and close, or stat, or unlink, of a
+chunk of files in one call).
 The engine's source is the port's own copy, ``csrc/ioengine.cpp`` (ABI
 11), built with g++ at first use into ``_build/`` by
 ``ops/cuda_build.load_host_library``. The ring's per-op deadline and
 its test-only fault injection (``set_timeout``, ``set_fault``) serve
-``--iotimeout`` and the ``ELBENCHO_TPU_IO_FAULT`` knob. The net, mmap,
-per-file and registered-pool entry points are later slices.
+``--iotimeout`` and the ``ELBENCHO_TPU_IO_FAULT`` knob. The net, mmap
+and registered-pool entry points are later slices.
 """
 
 from __future__ import annotations
@@ -54,6 +57,15 @@ def parse_fault_spec(spec: str) -> "tuple[int, int, int]":
 
 _lock = threading.Lock()
 _engine = None
+
+#: serializes the calls that create or destroy a kernel-AIO context (the
+#: stream probe, open and close): on a kernel whose io_destroy unmaps the
+#: context's ring page before it retires the context id (the gVisor
+#: sandbox of the H100 machine), an io_setup in another thread of the
+#: process can map that page again and fail with EINVAL. The engine's
+#: block loop (--ioengine aio without a device) sets up and destroys its
+#: context inside one long call, which this lock cannot cover.
+_aio_ctx_lock = threading.Lock()
 
 
 class NativeVerifyError(Exception):
@@ -139,9 +151,10 @@ class NativeStream:
         fds_arr = (ctypes.c_int * len(fds))(*fds)
         addr_arr = (ctypes.c_uint64 * n_slots)(*slot_addrs)
         err = ctypes.c_int(0)
-        handle = lib.ioengine_stream_open(fds_arr, len(fds), addr_arr,
-                                          n_slots, slot_size,
-                                          ctypes.byref(err))
+        with _aio_ctx_lock:
+            handle = lib.ioengine_stream_open(fds_arr, len(fds), addr_arr,
+                                              n_slots, slot_size,
+                                              ctypes.byref(err))
         if not handle:
             raise NativeStreamError(-err.value or errno_mod.EINVAL,
                                     "stream open")
@@ -226,7 +239,8 @@ class NativeStream:
         DMAs into them)."""
         ret = 0
         if self._handle is not None:
-            ret = self._lib.ioengine_stream_close(self._handle)
+            with _aio_ctx_lock:
+                ret = self._lib.ioengine_stream_close(self._handle)
             self._handle = None
         return ret
 
@@ -325,6 +339,39 @@ class _NativeEngine:
         lib.ioengine_stream_backend.restype = ctypes.c_int
         lib.ioengine_stream_backend.argtypes = []
         self._stream_backend = None  # kernel capability, probed once
+        lib.ioengine_run_file_loop3.restype = ctypes.c_int
+        lib.ioengine_run_file_loop3.argtypes = [
+            ctypes.c_char_p,                  # NUL-separated paths blob
+            ctypes.POINTER(ctypes.c_uint32),  # per-path blob offsets
+            ctypes.c_uint64,                  # num files
+            ctypes.c_int,                     # op (FILE_OPS)
+            ctypes.c_int,                     # open flags
+            ctypes.c_uint64,                  # file size
+            ctypes.c_uint64,                  # block size
+            ctypes.c_void_p,                  # io buffer
+            u64p,                             # per-file range starts (opt)
+            u64p,                             # per-file range lengths (opt)
+            ctypes.c_int,                     # ignore delete errors
+            u64p,                             # out: entry latencies
+            u64p,                             # out: block latencies
+            u64p,                             # out: bytes done
+            u64p,                             # out: entries done
+            u64p,                             # out: failing file index
+            ctypes.POINTER(ctypes.c_int),     # interrupt flag
+            ctypes.c_uint64,                  # verify salt
+            ctypes.c_int,                     # do_verify
+            ctypes.c_int,                     # block variance pct
+            ctypes.c_uint64,                  # block variance seed
+            ctypes.c_int,                     # rwmix read pct (write op)
+            ctypes.c_uint64,                  # rwmix base (rank+submitted)
+            u64p,                             # out: verify mismatch info[4]
+            u64p,                             # out: rwmix {blocks, bytes}
+            ctypes.c_uint64,                  # read rate limit (bytes/s)
+            ctypes.c_uint64,                  # write rate limit (bytes/s)
+            u64p,                             # in/out rate windows [4]
+            ctypes.c_int,                     # inline readback (write op)
+            ctypes.c_int,                     # flock mode 0|1=range|2=full
+        ]
 
     def version(self) -> str:
         return self._lib.ioengine_version().decode()
@@ -347,7 +394,10 @@ class _NativeEngine:
         once (it creates and destroys a ring). A live stream reports the
         backend it actually got via NativeStream.backend."""
         if self._stream_backend is None:
-            self._stream_backend = int(self._lib.ioengine_stream_backend())
+            with _aio_ctx_lock:
+                if self._stream_backend is None:
+                    self._stream_backend = int(
+                        self._lib.ioengine_stream_backend())
         return self._stream_backend
 
     def stream_backend_name(self) -> str:
@@ -411,6 +461,103 @@ class _NativeEngine:
             raise OSError(-ret, os.strerror(-ret))
         _account_chunk(worker, lat_arr, lengths, n, bytes_done.value,
                        int(lengths.sum()), op_is_read)
+
+    #: op codes of ioengine_run_file_loop3 (csrc/ioengine.cpp FILE_OP_*)
+    FILE_OPS = {"write": 0, "read": 1, "stat": 2, "unlink": 3}
+
+    def run_file_loop(self, paths: "list[str]", op: str, open_flags: int,
+                      file_size: int, block_size: int, buf_addr: int,
+                      ignore_delete_errors: bool, worker,
+                      interrupt_flag: ctypes.c_int, ranges=None,
+                      verify_salt: int = 0, block_var_pct: int = 0,
+                      block_var_seed: int = 0, rwmix_pct: int = 0,
+                      limit_read_bps: int = 0, limit_write_bps: int = 0,
+                      rl_state=None, inline_readback: bool = False,
+                      flock_mode: int = 0) -> None:
+        """One chunk of the per-file loop in C++: open, blocks and close
+        (write, read), or stat, or unlink, of each path. ``ranges`` is
+        (starts, lengths) of each file's byte range (a custom tree's
+        slices of shared files), else every file is [0, file_size). The
+        block modifiers are run_block_loop's; a write's --rwmixpct split
+        is (rank + op index) % 100 < rwmix_pct, counted on from the
+        worker's submitted ops. A verify mismatch raises
+        NativeVerifyError with the chunk's global block index; another
+        failure an OSError that names the path. The entry and block
+        latencies and the counters are booked on the worker; an
+        interrupted chunk books only the files it finished."""
+        n = len(paths)
+        encoded = [os.fsencode(p) for p in paths]
+        blob = b"\0".join(encoded) + b"\0"
+        offs = (ctypes.c_uint32 * n)()
+        pos = 0
+        for i, e in enumerate(encoded):
+            offs[i] = pos
+            pos += len(e) + 1
+        io_op = op in ("write", "read") and block_size
+        if ranges is not None:
+            starts_arr = _as_ptr(ranges[0], np.uint64, ctypes.c_uint64)
+            lens_arr = _as_ptr(ranges[1], np.uint64, ctypes.c_uint64)
+            per_file_blocks = (
+                (np.asarray(ranges[1], dtype=np.uint64)
+                 + np.uint64(block_size - 1)) // np.uint64(block_size)
+            ).astype(np.int64) if io_op else None
+            total_blocks = int(per_file_blocks.sum()) if io_op else 0
+        else:
+            starts_arr = lens_arr = per_file_blocks = None
+            bpf = (file_size + block_size - 1) // block_size \
+                if io_op and file_size else 0
+            total_blocks = n * bpf
+        entry_lat = (ctypes.c_uint64 * n)()
+        block_lat = (ctypes.c_uint64 * max(total_blocks, 1))()
+        bytes_done = ctypes.c_uint64(0)
+        entries_done = ctypes.c_uint64(0)
+        fail_idx = ctypes.c_uint64(0)
+        verify_info = (ctypes.c_uint64 * 4)()
+        rwmix_out = (ctypes.c_uint64 * 2)()
+        rwmix_base = worker.rank + worker._num_iops_submitted
+        ret = self._lib.ioengine_run_file_loop3(
+            blob, offs, n, self.FILE_OPS[op], open_flags, file_size,
+            block_size, ctypes.c_void_p(buf_addr), starts_arr, lens_arr,
+            1 if ignore_delete_errors else 0, entry_lat, block_lat,
+            ctypes.byref(bytes_done), ctypes.byref(entries_done),
+            ctypes.byref(fail_idx), ctypes.byref(interrupt_flag),
+            verify_salt, 1 if verify_salt else 0, block_var_pct,
+            block_var_seed, rwmix_pct, rwmix_base, verify_info, rwmix_out,
+            limit_read_bps, limit_write_bps, rl_state,
+            1 if inline_readback else 0, flock_mode)
+        if ret == -_EILSEQ:
+            raise NativeVerifyError(*(int(v) for v in verify_info))
+        if ret < 0:
+            failed = paths[min(fail_idx.value, n - 1)]
+            raise OSError(-ret, f"{os.strerror(-ret)} ({op}: {failed})",
+                          failed)
+        done = entries_done.value
+        if done:
+            worker.entries_latency_histo.add_latencies_array(
+                np.frombuffer(entry_lat, dtype=np.uint64)[:done])
+        if per_file_blocks is not None:
+            num_blocks = int(per_file_blocks[:done].sum())
+        else:
+            num_blocks = done * (total_blocks // n if n else 0)
+        rwmix_blocks, rwmix_bytes = rwmix_out[0], rwmix_out[1]
+        if num_blocks:
+            lat = np.frombuffer(block_lat, dtype=np.uint64)[:num_blocks]
+            if rwmix_pct and op == "write" and rwmix_blocks:
+                # the engine's own modulo, so the flags are exact
+                rd = (((np.uint64(rwmix_base)
+                        + np.arange(num_blocks, dtype=np.uint64))
+                       % np.uint64(100)) < np.uint64(rwmix_pct))
+                worker.iops_latency_histo_rwmix.add_latencies_array(lat[rd])
+                worker.iops_latency_histo.add_latencies_array(lat[~rd])
+            else:
+                worker.iops_latency_histo.add_latencies_array(lat)
+        worker.live_ops.num_entries_done += done
+        worker.live_ops.num_iops_done += num_blocks - rwmix_blocks
+        worker.live_ops.num_bytes_done += bytes_done.value - rwmix_bytes
+        worker.live_ops_rwmix_read.num_iops_done += rwmix_blocks
+        worker.live_ops_rwmix_read.num_bytes_done += rwmix_bytes
+        worker._num_iops_submitted += num_blocks
+        worker.create_stonewall_stats_if_triggered()
 
 
 def get_native_engine() -> "_NativeEngine | None":

@@ -35,8 +35,15 @@ phase off the fused ring; the native block loop serves them at
 ``--iodepth 1`` on the sync engine (``--opslog`` at any depth), the
 Python loop everywhere else. Every call into the device context goes
 through ``_gpu_guarded``, which hands a lost GPU to ``--gpufallback``.
-The engine's per-file loop, custom trees and the other storage back ends
-are later slices.
+
+Dir mode and custom trees (``--treefile``) go file by file. Without a
+device, at ``--iodepth 1`` on the sync engine and with no per-op Python
+feature, the engine's per-file loop runs whole chunks of files (open,
+blocks and close, or stat, or unlink: the small-file hot path). Else each
+file, or each worker's range of a shared tree file, goes through the
+block loops above. Under ``--treeroundrob`` a worker's share of a shared
+file is every dataset-thread-th block (``OffsetGenStrided``), which only
+the block loops take. The other storage back ends are later slices.
 
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
@@ -61,7 +68,7 @@ from ..toolkits import logger
 from ..toolkits.file_tk import FileRangeLock
 from ..toolkits.offset_gen import (OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
-                                   OffsetGenSequential)
+                                   OffsetGenSequential, OffsetGenStrided)
 from ..toolkits.ops_logger import OpsLogger
 from ..toolkits.random_algos import RandAlgoGoldenPrime, create_rand_algo
 from ..toolkits.rate_limiter import RateLimiter
@@ -290,7 +297,10 @@ class LocalWorker(Worker):
                        BenchPhase.STATDIRS):
             self._dir_mode_iterate_dirs(phase)
         elif self.cfg.bench_path_type == BenchPathType.DIR:
-            self._dir_mode_iterate_files(phase)
+            if self.cfg.tree_file_path:
+                self._custom_tree_iterate_files(phase)
+            else:
+                self._dir_mode_iterate_files(phase)
         else:
             self._file_mode_phase(phase)
 
@@ -356,8 +366,12 @@ class LocalWorker(Worker):
     def _dir_mode_iterate_files(self, phase: BenchPhase) -> None:
         """open -> block loop -> close per file; entry latency histogram
         per file (reference: dirModeIterateFiles :3055-3281,
-        unlinkat/fstatat for del/stat :3237-3249)."""
+        unlinkat/fstatat for del/stat :3237-3249). The engine's per-file
+        loop serves the phase where it can."""
         cfg = self.cfg
+        if self._can_use_native_file_loop(phase):
+            self._run_native_file_loop(phase)
+            return
         for dir_idx in range(cfg.num_dirs):
             base = self._bench_path_for_dir(dir_idx)
             for file_idx in range(cfg.num_files):
@@ -439,6 +453,256 @@ class LocalWorker(Worker):
             return OffsetGenRandomAligned(self._rand_offset_algo, amount, bs,
                                           range_len=size)
         return OffsetGenSequential(size, bs)
+
+    # ------------------------------------------------------------------
+    # the engine's per-file loop (phases without a device): open, blocks
+    # and close, or stat, or unlink, of a chunk of files per call
+    # ------------------------------------------------------------------
+
+    _NATIVE_FILE_OPS = {BenchPhase.CREATEFILES: "write",
+                        BenchPhase.READFILES: "read",
+                        BenchPhase.STATFILES: "stat",
+                        BenchPhase.DELETEFILES: "unlink"}
+
+    def _can_use_native_file_loop(self, phase: BenchPhase) -> bool:
+        """The whole per-file loop runs in the engine when no per-op
+        Python feature is active. The engine walks each file's blocks in
+        order on its sync path, so --rand and the asynchronous engines
+        stay in the block loops; the dir-mode --opslog entry records are
+        written in Python."""
+        cfg = self.cfg
+        return (self._native is not None and self._gpu is None
+                and self._native_loop_blocker() is None
+                and self._ops_log is None
+                and phase in self._NATIVE_FILE_OPS
+                and cfg.io_engine in ("auto", "sync")
+                and cfg.io_depth <= 1
+                and not cfg.use_random_offsets)
+
+    def _run_native_file_loop(self, phase: BenchPhase) -> None:
+        """Dir mode through the engine's per-file loop. A write or read
+        chunk holds at most about 8192 blocks and 256 MiB, so that the
+        live statistics and the stonewall stay fresh; a stat or unlink
+        chunk batches paths only."""
+        cfg = self.cfg
+        op = self._NATIVE_FILE_OPS[phase]
+        if op in ("write", "read") and cfg.file_size:
+            blocks_per_file = max(
+                (cfg.file_size + cfg.block_size - 1) // cfg.block_size, 1)
+            chunk = max(1, min(
+                self._NATIVE_CHUNK_MAX_BLOCKS // blocks_per_file,
+                self._NATIVE_CHUNK_MAX_BYTES // cfg.file_size))
+        else:
+            chunk = self._NATIVE_CHUNK_MAX_BLOCKS
+        paths: "list[str]" = []
+        for dir_idx in range(cfg.num_dirs):
+            base = self._bench_path_for_dir(dir_idx)
+            for file_idx in range(cfg.num_files):
+                paths.append(os.path.join(base, self.file_rel_path_for(
+                    self.rank, dir_idx, file_idx, cfg.do_dir_sharing)))
+                if len(paths) >= chunk:
+                    self._native_file_chunk(phase, paths)
+                    paths = []
+        if paths:
+            self._native_file_chunk(phase, paths)
+
+    def _native_file_chunk(self, phase: BenchPhase, paths: "list[str]",
+                           ranges: "tuple[list, list] | None" = None
+                           ) -> None:
+        """One engine call over `paths`; ``ranges`` (starts, lengths) are
+        a custom tree's per-file byte ranges, None for dir mode's whole
+        files. Under --ioretries a failed write, read or stat chunk runs
+        again whole (it books its counts only when it succeeds); an
+        unlink chunk never does, since a second run would miss the files
+        the first one removed."""
+        cfg = self.cfg
+        op = self._NATIVE_FILE_OPS[phase]
+        self.check_interruption_request(force=True)
+
+        def call():
+            self._native.run_file_loop(
+                paths, op, self._open_flags_write() if op == "write"
+                else os.O_RDONLY,
+                cfg.file_size, cfg.block_size,
+                self._staging_pool.slot_addrs[0],
+                self._partial_tolerance(phase), self,
+                self._native_interrupt,
+                ranges=ranges if op in ("write", "read") else None,
+                verify_salt=cfg.integrity_check_salt,
+                block_var_pct=cfg.block_variance_pct,
+                block_var_seed=self._block_var_seed(),
+                rwmix_pct=cfg.rwmix_read_pct if op == "write" else 0,
+                limit_read_bps=cfg.limit_read_bps,
+                limit_write_bps=cfg.limit_write_bps,
+                rl_state=self._native_rl_state,
+                inline_readback=(cfg.do_read_inline
+                                 or cfg.do_direct_verify),
+                flock_mode=self._flock_mode_code())
+
+        try:
+            if op == "unlink":
+                call()
+            else:
+                self._with_retries(call)
+        except NativeVerifyError as err:
+            # the chunk's global block index, back through the files'
+            # ranges; a zero-length file holds no block, as in the engine
+            bs = cfg.block_size
+            starts, lens = ranges if ranges is not None \
+                else ([0] * len(paths), [cfg.file_size] * len(paths))
+            blk = err.block_idx
+            for path, r_start, r_len in zip(paths, starts, lens):
+                n_blocks = (r_len + bs - 1) // bs
+                if blk < n_blocks:
+                    raise WorkerException(
+                        f"data integrity check failed at file offset "
+                        f"{r_start + blk * bs + err.word_idx * 8} of "
+                        f"{path}: expected {err.want:#x}, got "
+                        f"{err.got:#x}{self._verify_fail_hint(err.got)}"
+                    ) from None
+                blk -= n_blocks
+            raise WorkerException(
+                f"data integrity check failed (block {err.block_idx}): "
+                f"expected {err.want:#x}, got {err.got:#x}"
+                f"{self._verify_fail_hint(err.got)}") from None
+        except FileNotFoundError as err:
+            if ranges is None and phase == BenchPhase.CREATEFILES \
+                    and not cfg.run_create_dirs:
+                # parity hint (reference: dirModeOpenAndPrepFile :7395);
+                # the engine does not say which file, so no "Path:"
+                raise WorkerException(
+                    "File create/open failed. Did you forget to enable "
+                    "directory creation ('--mkdirs'/-d)?") from err
+            raise
+
+    @staticmethod
+    def _verify_fail_hint(got: int) -> str:
+        """An all-zero word most likely comes from a region never
+        written, not from corruption."""
+        return " (read of an unwritten/sparse region?)" if got == 0 else ""
+
+    # ------------------------------------------------------------------
+    # custom tree mode (reference: dirModeIterateCustomDirs :2960/:3294)
+    # ------------------------------------------------------------------
+
+    def _custom_tree_iterate_files(self, phase: BenchPhase) -> None:
+        """The tree file's files: sorted by path length (or shuffled with
+        seed 42 under --treerand, one order on every host), split at
+        --sharesize (default: the block size times the dataset threads)
+        into whole files, spread over the workers by size, and shared
+        files, cut into block ranges. The MKDIRS and RMDIRS phases never
+        come here: they make and remove dir mode's -n dirs, so the
+        tree's parent directories come from the write (as in the JAX
+        package)."""
+        from ..toolkits.path_store import PathStore
+        cfg = self.cfg
+        store = PathStore(block_size=cfg.block_size)
+        store.load_files_from_file(cfg.tree_file_path,
+                                   round_up_size=cfg.tree_round_up_size)
+        if cfg.use_custom_tree_rand:
+            store.random_shuffle(seed=42)
+        else:
+            store.sort_by_path_len()
+        ndst = max(1, cfg.num_dataset_threads)
+        rank = self.rank % ndst
+        non_shared, shared = store.split_by_share_size(
+            cfg.file_share_size or (cfg.block_size * ndst))
+
+        def contiguous(elems):
+            return [(e, OffsetGenSequential(e.range_len, cfg.block_size,
+                                            start=e.range_start))
+                    for e in elems]
+
+        # (element, the offsets of its range) of each of the worker's files
+        items = contiguous(
+            non_shared.get_worker_sublist_non_shared(rank, ndst).elems)
+        if cfg.use_custom_tree_round_robin:
+            items += [(e, OffsetGenStrided(e.range_len, cfg.block_size,
+                                           ndst, start=e.range_start))
+                      for e in shared.get_worker_sublist_shared_round_robin(
+                          rank, ndst).elems]
+        else:
+            items += contiguous(
+                shared.get_worker_sublist_shared(rank, ndst).elems)
+        base = cfg.paths[0]
+        if phase == BenchPhase.DELETEFILES:
+            # only the worker whose range starts at offset 0 deletes a
+            # shared file; a worker left with nothing has no phase work
+            items = [(e, gen) for e, gen in items if e.range_start == 0]
+            if not items:
+                self.got_phase_work = False
+                return
+        if self._can_use_native_file_loop(phase):
+            self._run_native_tree_loop(phase, base, items)
+            return
+        for elem, gen in items:
+            self._tree_entry(phase, os.path.join(base, elem.path), gen)
+
+    def _tree_entry(self, phase: BenchPhase, path: str, gen) -> None:
+        """One tree file through the block loops (the fused ring where
+        the range is long enough, else the native block loop or the
+        Python loop): create with its parent directories and write its
+        range, read its range, stat or unlink; one entry latency."""
+        self.check_interruption_request(force=True)
+        t0 = time.perf_counter_ns()
+        if phase in (BenchPhase.CREATEFILES, BenchPhase.READFILES):
+            is_write = phase == BenchPhase.CREATEFILES
+            if is_write:
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                fd = os.open(path, self._open_flags_write(), MKFILE_MODE)
+            else:
+                fd = os.open(path, os.O_RDONLY)
+            try:
+                if gen.num_bytes:
+                    self._rw_block_sized(fd, gen, is_write=is_write)
+            finally:
+                os.close(fd)
+        elif phase == BenchPhase.STATFILES:
+            os.stat(path)
+        elif phase == BenchPhase.DELETEFILES:
+            try:  # shared files' other ranges were filtered out before
+                os.unlink(path)
+            except FileNotFoundError:
+                if not self._partial_tolerance(phase):
+                    raise
+        self.entries_latency_histo.add_latency(
+            (time.perf_counter_ns() - t0) // 1000)
+        self.live_ops.num_entries_done += 1
+
+    def _run_native_tree_loop(self, phase: BenchPhase, base: str,
+                              items) -> None:
+        """Tree files through the engine's per-file loop, each with its
+        byte range, in chunks of at most 8192 files and about 256 MiB. A
+        write makes the files' directories up front. A --treeroundrob
+        share is not one contiguous range: it goes through the block
+        loops, in its place in the worker's order."""
+        if phase == BenchPhase.CREATEFILES:
+            for d in {os.path.dirname(os.path.join(base, e.path))
+                      for e, _ in items}:
+                os.makedirs(d or ".", exist_ok=True)
+        paths: "list[str]" = []
+        starts: "list[int]" = []
+        lens: "list[int]" = []
+        chunk_bytes = 0
+        for elem, gen in items:
+            path = os.path.join(base, elem.path)
+            if isinstance(gen, OffsetGenStrided) and phase in (
+                    BenchPhase.CREATEFILES, BenchPhase.READFILES):
+                if paths:
+                    self._native_file_chunk(phase, paths, (starts, lens))
+                    paths, starts, lens, chunk_bytes = [], [], [], 0
+                self._tree_entry(phase, path, gen)
+                continue
+            paths.append(path)
+            starts.append(elem.range_start)
+            lens.append(elem.range_len)
+            chunk_bytes += elem.range_len
+            if len(paths) >= self._NATIVE_CHUNK_MAX_BLOCKS \
+                    or chunk_bytes >= self._NATIVE_CHUNK_MAX_BYTES:
+                self._native_file_chunk(phase, paths, (starts, lens))
+                paths, starts, lens, chunk_bytes = [], [], [], 0
+        if paths:
+            self._native_file_chunk(phase, paths, (starts, lens))
 
     # ------------------------------------------------------------------
     # file mode (reference: fileModeIterateFilesSeq :3597,
@@ -990,12 +1254,11 @@ class LocalWorker(Worker):
                 self._with_retries(call)
             except NativeVerifyError as err:
                 file_off = int(offsets[err.block_idx]) + err.word_idx * 8
-                hint = (" (read of an unwritten/sparse region?)"
-                        if err.got == 0 else "")
                 raise WorkerException(
                     f"data integrity check failed at file offset "
                     f"{file_off}: expected {err.want:#x}, "
-                    f"got {err.got:#x}{hint}") from None
+                    f"got {err.got:#x}{self._verify_fail_hint(err.got)}"
+                ) from None
 
     # ------------------------------------------------------------------
     # data-plane fault tolerance (--ioretries, --iotimeout, --gpufallback;

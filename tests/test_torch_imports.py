@@ -69,6 +69,9 @@ def test_importing_the_cli_loads_no_jax():
             "elbencho_tpu_torch.models.workloads, elbencho_tpu_torch.entry, "
             "elbencho_tpu_torch.toolkits.rate_limiter, "
             "elbencho_tpu_torch.toolkits.random_algos, "
+            "elbencho_tpu_torch.toolkits.path_store, "
+            "elbencho_tpu_torch.toolkits.file_tk, "
+            "elbencho_tpu_torch.toolkits.offset_gen, "
             "elbencho_tpu_torch.stats.statistics;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'elbencho_tpu'));"

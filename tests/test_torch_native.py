@@ -322,3 +322,76 @@ def test_stream_ring_over_the_staging_slots(tmp_path):
     finally:
         os.close(fd)
         pool.close()
+
+
+class _OverlapRecorder:
+    """The engine library with its AIO-context calls (the stream probe,
+    open and close) timed: records the most of them ever in flight at
+    once, holding each open for a moment so that an unserialized call
+    from another thread would overlap it."""
+
+    _CALLS = ("ioengine_stream_backend", "ioengine_stream_open",
+              "ioengine_stream_close")
+
+    def __init__(self, lib):
+        import threading
+        self._lib = lib
+        self._mu = threading.Lock()
+        self.active = self.most = self.calls = 0
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._CALLS:
+            return fn
+
+        def timed(*args):
+            with self._mu:
+                self.active += 1
+                self.calls += 1
+                self.most = max(self.most, self.active)
+            try:
+                time.sleep(0.002)
+                return fn(*args)
+            finally:
+                with self._mu:
+                    self.active -= 1
+        return timed
+
+
+def test_aio_context_calls_never_overlap_across_threads(tmp_path):
+    """Workers that probe the stream backend and open and close rings at
+    once reach the engine one at a time (an io_setup beside another
+    thread's io_destroy fails with EINVAL on some kernels), and the probe
+    runs once per engine."""
+    import threading
+    from elbencho_tpu_torch.utils.staging_pool import StagingPool
+    engine = port_native._NativeEngine(port_native.get_native_engine()._lib)
+    recorder = _OverlapRecorder(engine._lib)
+    engine._lib = recorder
+    path = tmp_path / "f"
+    path.write_bytes(bytes(8192))
+    fd = os.open(path, os.O_RDONLY)
+    pools = [StagingPool(2, 4096) for _ in range(4)]
+    backends, errors = [], []
+
+    def worker(pool):
+        try:
+            for _ in range(5):
+                backends.append(engine.stream_backend())
+                engine.open_stream([fd], pool.slot_addrs, 4096).close()
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+    threads = [threading.Thread(target=worker, args=(p,)) for p in pools]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        os.close(fd)
+        for pool in pools:
+            pool.close()
+    assert errors == []
+    assert set(backends) == {port_native.get_native_engine().stream_backend()}
+    assert recorder.calls == 1 + 2 * 5 * len(pools)  # one probe
+    assert recorder.most == 1
