@@ -140,7 +140,8 @@ without printing a result otherwise. In order it:
    the main path's file at -t 2 -b 16M --iodepth 4 with
    ELBENCHO_TPU_TESTING=1 for the pass alone: --ioretries 3 with every
    5th storage op short (the ring through the engine's
-   ELBENCHO_TPU_IO_FAULT, the Python loop through a patched os.preadv),
+   ELBENCHO_TPU_IO_FAULT, whose "first" schedule faults no retry, the
+   Python loop through a patched os.preadv),
    staged and --gpudirect, each beside a clean read, a short --verify
    read and a short 1 GiB --gpudirect --gpuverify read (one launch per
    block); hang:13 with --iotimeout 1; eio:7, which must fail unless the
@@ -212,7 +213,25 @@ without printing a result otherwise. In order it:
    MMAP_LIMIT_S (90 s); and, beside the ring setup check of 1, 4
    threads x 250 calls of the engine's block loop on kernel AIO, none
    of which may be refused;
-19. prints the kernel line {"kernels": [...]} and, last, the result line
+19. direct I/O and the access patterns (access_pass), after 18 and
+   before 11, at -t 2 -b 16M --iodepth 4 on a 2 GiB file: an O_DIRECT
+   probe of the work directory (open, F_GETFL, an aligned and a
+   misaligned preadv, printed; where no directory opens with O_DIRECT a
+   --direct phase must fail with the JAX package's text and the runs go
+   on without --direct); the main path's read with --direct through the
+   fused ring, staged and --gpudirect, each beside its buffered twin,
+   the ring's fds checked for O_DIRECT, and a --direct --gpuverify read;
+   --verify 7 --gpuverify reads under --rand --randamount 512M for each
+   --randalgo, --backward, --strided and --shufflewindow 256M (one
+   launch per block read; the last three read every block once); a
+   --rand --norandalign read, and its --gpuverify twin, which must fail
+   on an unaligned block as the JAX package's does; the shuffled read
+   beside its sequential twin;
+   -w -r over f{1..4} against --nopathexp; --nofdsharing (one open per
+   worker); the --mmap --direct and --shufflewindow --rand refusals;
+   prints each run's MiB/s and the pass's wall time, which must stay
+   within ACCESS_LIMIT_S (90 s);
+20. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -230,6 +249,7 @@ import errno
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -2308,7 +2328,9 @@ def fault_pass(work: str) -> int:
     only. Returns the fingerprint launches.
 
     (a) --ioretries 3 with every 5th storage op short (the ring: the
-        engine's short:5; the Python loop: short_preadv), staged and
+        engine's short:5:0:first, which counts and faults first submits
+        only, so that a retry never lines up with the schedule; the
+        Python loop: short_preadv), staged and
         --gpudirect, each beside a clean read in this run: exit 0, the
         whole file, IoRetries at least ops/5; a short:5 --verify 7 read
         of the ring; a 1 GiB --gpudirect --gpuverify short:5 read with
@@ -2354,7 +2376,7 @@ def fault_pass(work: str) -> int:
             name = f"short:{FAULT_SHORT_EVERY} read, {loop}"
             if fused:
                 os.environ["ELBENCHO_TPU_IO_FAULT"] = \
-                    f"short:{FAULT_SHORT_EVERY}"
+                    f"short:{FAULT_SHORT_EVERY}:0:first"
                 seam = contextlib.nullcontext()
             else:
                 seam = short_preadv(FAULT_SHORT_EVERY)
@@ -2374,7 +2396,8 @@ def fault_pass(work: str) -> int:
                   f"({rec['MiBPerSecLast'] / clean['MiBPerSecLast']:.3f}x)"
                   f", {rec['IoRetries']} retries, "
                   f"{rec['IoRetryUsec']} us of backoff")
-        os.environ["ELBENCHO_TPU_IO_FAULT"] = f"short:{FAULT_SHORT_EVERY}"
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = \
+            f"short:{FAULT_SHORT_EVERY}:0:first"
         name = f"short:{FAULT_SHORT_EVERY} --verify 7 read, fused ring"
         (rec,), _ = run_pass(name, ["-r", *common, "--verify", "7",
                                     *retries, path], json_path, ["READ"])
@@ -2396,7 +2419,7 @@ def fault_pass(work: str) -> int:
               f", {rec['IoRetries']} retries")
         total += launches
 
-        os.environ["ELBENCHO_TPU_IO_FAULT"] = "hang:13"
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = "hang:13:0:first"
         name = "(b) hang:13 read --iotimeout 1 --ioretries 3, fused ring"
         (rec,), _ = run_pass(name, ["-r", *common, "--iotimeout", "1",
                                     *retries, path], json_path, ["READ"])
@@ -2407,7 +2430,7 @@ def fault_pass(work: str) -> int:
         print(f"  {name}: {rec['MiBPerSecLast']} MiB/s, "
               f"{rec['IoTimeouts']} timeouts, {rec['IoRetries']} retries")
 
-        os.environ["ELBENCHO_TPU_IO_FAULT"] = "eio:7"
+        os.environ["ELBENCHO_TPU_IO_FAULT"] = "eio:7:0:first"
         netfs = is_netfs_path(path)
         name = "(c) eio:7 read --ioretries 3"
         if netfs:
@@ -3393,6 +3416,350 @@ def mmap_pass(work: str) -> int:
     return total
 
 
+ACCESS_SIZE = 2 << 30           # -s 2g of the direct I/O and pattern pass
+ACCESS_LIMIT_S = 90             # the most the access pass may take
+ACCESS_RAND_AMOUNT = 512 << 20  # --randamount of its random reads
+ACCESS_WINDOW = 256 << 20       # --shufflewindow of its shuffled reads
+ACCESS_PATH_SIZE = 256 << 20    # -s of each of the four f{1..4} files
+RAND_ALGOS = ("strong", "balanced_single", "balanced", "fast")
+
+
+def o_direct_probe(directory: str) -> dict:
+    """What O_DIRECT does in `directory`: whether an open with it works,
+    whether fcntl(F_GETFL) keeps the flag, whether an aligned 4 KiB
+    preadv works, and whether one into a buffer one byte off alignment
+    is refused (a file system that serves it from the page cache takes
+    it)."""
+    import fcntl
+    import mmap
+    path = os.path.join(directory, "o_direct.probe")
+    with open(path, "wb") as f:
+        f.write(bytes(8192))
+    out = {"opens": False, "getfl_keeps": False, "aligned_read": False,
+           "misaligned_refused": False, "error": ""}
+    try:
+        fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+    except OSError as err:
+        out["error"] = f"{type(err).__name__}: {err}"
+        os.unlink(path)
+        return out
+    buf = mmap.mmap(-1, 16384)
+    try:
+        out["opens"] = True
+        out["getfl_keeps"] = bool(fcntl.fcntl(fd, fcntl.F_GETFL)
+                                  & os.O_DIRECT)
+        try:
+            out["aligned_read"] = os.preadv(
+                fd, [memoryview(buf)[:4096]], 0) == 4096
+        except OSError as err:
+            out["error"] = f"aligned read: {err}"
+        try:
+            os.preadv(fd, [memoryview(buf)[1:4097]], 0)
+        except OSError as err:
+            out["misaligned_refused"] = err.errno == errno.EINVAL
+    finally:
+        os.close(fd)
+        buf.close()
+        os.unlink(path)
+    return out
+
+
+@contextlib.contextmanager
+def ring_fd_flags():
+    """The O_DIRECT bit of each fd the fused ring opens over, read with
+    fcntl(F_GETFL) as each ring opens, while the block runs."""
+    import fcntl
+    from elbencho_tpu_torch.utils.native import _NativeEngine
+    real = _NativeEngine.open_stream
+    flags = []
+
+    def spy(self, fds, *args, **kwargs):
+        flags.extend(bool(fcntl.fcntl(fd, fcntl.F_GETFL) & os.O_DIRECT)
+                     for fd in fds)
+        return real(self, fds, *args, **kwargs)
+
+    _NativeEngine.open_stream = spy
+    try:
+        yield flags
+    finally:
+        _NativeEngine.open_stream = real
+
+
+@contextlib.contextmanager
+def worker_offsets():
+    """Each file-mode offset generator a worker makes while the block
+    runs, drained (then reset for the phase): {rank: [(offset, length),
+    ...]}."""
+    from elbencho_tpu_torch.workers.local_worker import LocalWorker
+    real = LocalWorker._make_file_mode_offset_gen
+    seqs: "dict[int, list]" = {}
+
+    def spy(self, *args, **kwargs):
+        gen = real(self, *args, **kwargs)
+        if gen is not None:
+            seqs.setdefault(self.rank, []).extend(gen)
+            gen.reset()
+        return gen
+
+    LocalWorker._make_file_mode_offset_gen = spy
+    try:
+        yield seqs
+    finally:
+        LocalWorker._make_file_mode_offset_gen = real
+
+
+@contextlib.contextmanager
+def path_opens(path: str):
+    """The flags of every os.open of `path` while the block runs."""
+    real = os.open
+    flags = []
+
+    def spy(p, fl, *args, **kwargs):
+        if os.fspath(p) == path:
+            flags.append(fl)
+        return real(p, fl, *args, **kwargs)
+
+    os.open = spy
+    try:
+        yield flags
+    finally:
+        os.open = real
+
+
+def refused(name: str, args: "list[str]", json_path: str,
+            text: str) -> None:
+    """Fail unless the CLI refuses `args` with `text` on stderr."""
+    err = _Tee()
+    with contextlib.redirect_stderr(err):
+        rc, _ = run_cli(args, json_path)
+    if rc == 0 or text not in err.text.getvalue():
+        fail(f"{name} exited {rc} without the refusal '{text}'")
+    print(f"  {name}: refused as it must (rc {rc}): {text}")
+
+
+def access_pass(work: str) -> int:
+    """Direct I/O and the access patterns at the main path's width (-t 2
+    -b 16M --iodepth 4 --gpuids 0) on a 2 GiB file of 128 blocks;
+    returns the fingerprint launches. Each run's loop and MiB/s and the
+    pass's wall time are printed, and the pass must end within
+    ACCESS_LIMIT_S.
+
+    (0) An O_DIRECT probe of the work directory, then of the temporary
+        directory: the open, fcntl(F_GETFL), an aligned and a misaligned
+        preadv. The first directory that opens with O_DIRECT holds the
+        runs; where none does, a --direct phase must fail with the JAX
+        package's text, and the runs go on without --direct.
+    (a) The main path under --direct through the fused ring, staged and
+        --gpudirect, each beside its buffered twin; a --direct
+        --gpudirect --verify 7 --gpuverify read (128 launches); the
+        ring's fds must carry O_DIRECT where F_GETFL reports it.
+    (b) --verify 7 --gpuverify reads under each pattern: --rand
+        --randamount 512M for each --randalgo, --backward, --strided and
+        --shufflewindow 256M: one launch per block read, and each of the
+        last three reads every block once; --rand --norandalign (without
+        --direct) reads its bytes, and with --verify 7 --gpuverify fails
+        on a block at an offset that is not a multiple of 8, as the JAX
+        package does; then the shuffled read and its sequential twin
+        without verify, both rates printed.
+    (c) -w -r over work/f{1..4}, four 256 MiB files, against --nopathexp
+        on a literal name with braces.
+    (d) --nofdsharing: one open of the file per worker, against one.
+    (e) The refusals of --mmap --direct and --shufflewindow --rand."""
+    t_start = time.monotonic()
+    blocks = ACCESS_SIZE // MAIN_BLOCK
+    bs = f"{MAIN_BLOCK >> 20}M"
+    common = ["-t", "2", "-b", bs, "--iodepth", "4", "--gpuids", "0"]
+    verify = ["--verify", "7", "--gpuverify"]
+    total = 0
+
+    print("access pass (0): O_DIRECT probe")
+    tmp_root = tempfile.gettempdir()
+    where, probe = None, None
+    for cand in (work, tmp_root):
+        if cand != work and shutil.disk_usage(cand).free \
+                < ACCESS_SIZE + (1 << 30):
+            print(f"  {cand}: too little space for the pass's file")
+            continue
+        probe = o_direct_probe(cand)
+        print(f"  {cand}: {json.dumps(probe)}")
+        if probe["opens"] and probe["aligned_read"]:
+            where = cand
+            break
+    direct = ["--direct"] if where else []
+    if where is None:
+        where = work
+        name = "-r --direct on a file system that refuses O_DIRECT"
+        path = os.path.join(where, "nodirect.bin")
+        with open(path, "wb") as f:
+            f.truncate(ACCESS_SIZE)
+        refused(name, ["-r", *common, "-s", f"{ACCESS_SIZE >> 20}M",
+                       "--direct", path], os.path.join(work, "access.json"),
+                "unable to open benchmark path")
+        os.unlink(path)
+        print("  the card's file systems refuse O_DIRECT; the runs below "
+              "go without --direct")
+    elif not probe["misaligned_refused"]:
+        print(f"  {where} takes a misaligned O_DIRECT read: page-cache "
+              f"reads cannot be told apart there, so the runs below are "
+              f"held to their bytes and checks, not to a speed")
+    bench = os.path.join(where, "access")
+    os.makedirs(bench, exist_ok=True)
+    path = os.path.join(bench, "access.bin")
+    json_path = os.path.join(work, "access.json")
+    size = ["-s", f"{ACCESS_SIZE >> 20}M"]
+
+    def run(name, args, phases=("READ",), launches=0, ops=blocks,
+            nbytes=ACCESS_SIZE):
+        nonlocal total
+        recs, got = run_pass(name, args, json_path, list(phases))
+        total += got
+        if got != launches:
+            fail(f"pass '{name}': {got} fingerprint launches, want "
+                 f"{launches}")
+        for rec in recs:
+            expect(name, rec, BytesLast=nbytes, TpuHbmBytes=nbytes, ops=ops,
+                   device_ops=ops)
+        return recs[-1]
+
+    try:
+        run("write the access file", ["-w", *common, *size, "--verify", "7",
+                                      *direct, path], phases=("WRITE",))
+
+        print(f"access pass (a): the main path {' '.join(direct) or ''} "
+              f"through the fused ring")
+        for mode, flags in (("staged", []), ("--gpudirect",
+                                             ["--gpudirect"])):
+            name = f"-r {' '.join(direct)} {mode}"
+            with ring_fd_flags() as fd_flags:
+                rec = run(name, ["-r", *common, *flags, *direct,
+                                 "--gpustream", "on", path])
+            twin = run(f"{name}, buffered twin",
+                       ["-r", *common, *flags, "--gpustream", "on", path])
+            expect(name, rec, TpuStreamFusedOps=blocks)
+            if direct and probe["getfl_keeps"] and not all(fd_flags):
+                fail(f"pass '{name}': the ring's fds {fd_flags} lack "
+                     f"O_DIRECT")
+            print(f"  {name}: device {rec['TpuHbmMiBPerSec']} MiB/s, "
+                  f"storage {rec['MiBPerSecLast']} MiB/s; buffered twin: "
+                  f"device {twin['TpuHbmMiBPerSec']} MiB/s; the ring's fds "
+                  f"carry O_DIRECT per F_GETFL: {fd_flags}")
+        name = f"-r {' '.join(direct)} --gpudirect {' '.join(verify)}"
+        rec = run(name, ["-r", *common, *verify, "--gpudirect", *direct,
+                         path], launches=blocks)
+        print(f"  {name}: device {rec['TpuHbmMiBPerSec']} MiB/s, "
+              f"{loop_taken(rec)}")
+
+        print("access pass (b): --gpuverify reads under each pattern")
+        rand_blocks = ACCESS_RAND_AMOUNT // MAIN_BLOCK
+        rand = ["--rand", "--randamount", f"{ACCESS_RAND_AMOUNT >> 20}M"]
+        patterns = [(f"--rand --randalgo {algo}",
+                     [*rand, "--randalgo", algo, *direct], rand_blocks)
+                    for algo in RAND_ALGOS]
+        for name, flags in (("--backward", ["--backward"]),
+                            ("--strided", ["--strided"]),
+                            (f"--shufflewindow {ACCESS_WINDOW >> 20}M",
+                             ["--shufflewindow",
+                              f"{ACCESS_WINDOW >> 20}M"])):
+            patterns.append((name, [*flags, *direct], blocks))
+        for name, flags, n in patterns:
+            with worker_offsets() as seqs:
+                rec = run(name, ["-r", *common, *size, *verify, *flags,
+                                 path], launches=n, ops=n,
+                          nbytes=n * MAIN_BLOCK)
+            every = sorted(b for seq in seqs.values() for b in seq)
+            if "--rand" not in flags and every != [
+                    (i * MAIN_BLOCK, MAIN_BLOCK) for i in range(blocks)]:
+                fail(f"pass '{name}': the workers' offsets do not read "
+                     f"each block once")
+            print(f"  {name}: device {rec['TpuHbmMiBPerSec']} MiB/s, "
+                  f"{n} blocks, {n} launches, {loop_taken(rec)}")
+        # --norandalign: the bytes without verify, then the quirk that
+        # both packages keep: a verified read fails on the first block at
+        # an offset that is not a multiple of 8, which the pattern laid
+        # out from the block's own offset does not match
+        name = "--rand --norandalign"
+        rec = run(name, ["-r", *common, *size, *rand, "--norandalign",
+                         path], ops=rand_blocks,
+                  nbytes=rand_blocks * MAIN_BLOCK)
+        print(f"  {name}: device {rec['TpuHbmMiBPerSec']} MiB/s, "
+              f"{rand_blocks} blocks, {loop_taken(rec)}")
+        from elbencho_tpu_torch.ops.verify import fingerprint_u32
+        fingerprint_u32.launches.reset()
+        text = failing_run(f"{name} {' '.join(verify)}",
+                           ["-r", *common, *size, *rand, "--norandalign",
+                            *verify, path], json_path,
+                           "on-device integrity check failed for block")
+        got = fingerprint_u32.launches.count
+        total += got
+        bad = [int(m) for m in re.findall(r"block at offset (\d+)", text)]
+        if not got or not bad or any(off % 8 == 0 for off in bad):
+            fail(f"pass '{name} --verify': {got} launches, failed blocks "
+                 f"at {bad}; want a block at an offset that is not a "
+                 f"multiple of 8")
+        print(f"  {name} {' '.join(verify)}: failed as the JAX package "
+              f"fails it, {got} launches, first failed blocks at offsets "
+              f"{sorted(set(bad))} (none a multiple of 8)")
+        shuffled = run("--shufflewindow, no verify",
+                       ["-r", *common, *size, "--shufflewindow",
+                        f"{ACCESS_WINDOW >> 20}M", *direct, path])
+        sequential = run("sequential twin, no verify",
+                         ["-r", *common, *size, *direct, path])
+        print(f"  --shufflewindow {ACCESS_WINDOW >> 20}M: device "
+              f"{shuffled['TpuHbmMiBPerSec']} MiB/s against the sequential "
+              f"twin's {sequential['TpuHbmMiBPerSec']} MiB/s "
+              f"({shuffled['TpuHbmMiBPerSec'] / max(sequential['TpuHbmMiBPerSec'], 1e-9):.4f}x)")
+
+        print("access pass (c): {N..M} path expansion and --nopathexp")
+        n_path = ACCESS_PATH_SIZE // MAIN_BLOCK
+        name = "-w -r f{1..4}"
+        run(name, ["-w", "-r", *common, "-s", f"{ACCESS_PATH_SIZE >> 20}M",
+                   *verify, *direct, os.path.join(bench, "f{1..4}")],
+            phases=("WRITE", "READ"), launches=4 * n_path, ops=4 * n_path,
+            nbytes=4 * ACCESS_PATH_SIZE)
+        literal = os.path.join(bench, "lit{1..2}")
+        run("-w --nopathexp lit{1..2}",
+            ["-w", *common, "-s", f"{ACCESS_PATH_SIZE >> 20}M",
+             "--nopathexp", *direct, literal], phases=("WRITE",),
+            ops=n_path, nbytes=ACCESS_PATH_SIZE)
+        names = sorted(os.listdir(bench))
+        if not {"f1", "f2", "f3", "f4", "lit{1..2}"} <= set(names) \
+                or "f{1..4}" in names:
+            fail(f"the expansion pass left {names}")
+        print(f"  f{{1..4}} made four files and the literal name one: "
+              f"{names}")
+
+        print("access pass (d): --nofdsharing")
+        for flags, want in (([], 1), (["--nofdsharing"], 2)):
+            name = f"-r {' '.join(flags) or '(shared fds)'}"
+            with path_opens(path) as opened:
+                rec = run(name, ["-r", *common, *size, *flags, *direct,
+                                 path])
+            if len(opened) != want or (direct and not all(
+                    f & os.O_DIRECT for f in opened)):
+                fail(f"pass '{name}': {len(opened)} opens of the file "
+                     f"(flags {opened}), want {want} with O_DIRECT "
+                     f"{bool(direct)}")
+            print(f"  {name}: {len(opened)} open(s) of the file, device "
+                  f"{rec['TpuHbmMiBPerSec']} MiB/s")
+
+        print("access pass (e): the refusals")
+        refused("--mmap --direct", ["-r", *common, *size, "--mmap",
+                                    "--direct", path],
+                json_path, "--mmap and --direct are incompatible")
+        refused("--shufflewindow --rand",
+                ["-r", *common, *size, "--shufflewindow",
+                 f"{ACCESS_WINDOW >> 20}M", "--rand", path], json_path,
+                "--shufflewindow drives its own offset permutation")
+    finally:
+        shutil.rmtree(bench, ignore_errors=True)
+    secs = time.monotonic() - t_start
+    print(f"access pass: {secs:.1f} s, {total} fingerprint launches")
+    if secs > ACCESS_LIMIT_S:
+        fail(f"the access pass took {secs:.1f} s, over its "
+             f"{ACCESS_LIMIT_S} s")
+    return total
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -3505,6 +3872,7 @@ def main() -> int:
         launches += losf_launches
         launches += tree_pass(work, losf_rates)
         launches += mmap_pass(work)
+        launches += access_pass(work)
         launches += entry_pass(dev)
         kernel["launches"] = launches
     finally:

@@ -33,9 +33,14 @@ engine's last per-op features (``--flock``, ``--opslog``,
 trees (``--treefile``, ``--treerand``, ``--treeroundrob``,
 ``--treeroundup``, ``--sharesize``, ``--treescan``) and memory-mapped
 I/O (``--mmap``, ``--madv``, which also steers the staging slab's
-hugepage ladder, and ``--fadv``). The other storage
-back ends (and with them the bucket scan of ``--treescan``) and the
-remaining flags are later slices (ROADMAP.md queue A).
+hugepage ladder, and ``--fadv``) and direct I/O (``--direct``,
+``--nodiocheck``, ``--nofdsharing``) and the access patterns
+(``--randamount``, ``--norandalign``, ``--randalgo``, ``--backward``,
+``--strided``, ``--shufflewindow``). Bench paths take bash's ``{N..M}``
+numeric ranges (``/mnt/f{1..4}`` is four paths) unless ``--nopathexp``.
+The other storage back ends (and with them the bucket scan of
+``--treescan``) and the remaining flags are later slices (ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -97,8 +102,35 @@ FLAG_DEFS = [
      "streaming ring (--gpustream): a hung op is cancelled and "
      "surfaces as ETIMEDOUT — transient, so --ioretries can re-drive "
      "it on the re-armed slot (0 = no deadline)"),
+    # access pattern
     ("rand", None, "use_random_offsets", "bool", False,
      "Random offsets instead of sequential"),
+    ("randamount", None, "random_amount", "size", 0,
+     "Total bytes to read/write in random mode (default: full size)"),
+    ("norandalign", None, "no_random_align", "bool", False,
+     "Do not align random offsets to block size"),
+    ("randalgo", None, "rand_offset_algo", "str", "fast",
+     "Random offset generator: strong|balanced_single|balanced|fast"),
+    ("backward", None, "do_reverse_seq_offsets", "bool", False,
+     "Do backward sequential reads/writes"),
+    ("strided", None, "do_strided_access", "bool", False,
+     "Strided access across shared files"),
+    ("shufflewindow", None, "shuffle_window", "size", 0,
+     "Read phases: emit block offsets as a seeded permutation within "
+     "consecutive windows of this many bytes — every block exactly "
+     "once, locality bounded by the window (the shuffle-buffer access "
+     "shape of training input pipelines; the epochs scenario sets it "
+     "per epoch with a per-epoch seed). 0 = off; incompatible with "
+     "--rand/--backward/--strided/--mmap"),
+    # file handling
+    ("direct", None, "use_direct_io", "bool", False,
+     "Use direct I/O (O_DIRECT), bypassing page cache"),
+    ("nodiocheck", None, "no_direct_io_check", "bool", False,
+     "Skip direct-I/O alignment sanity checks"),
+    ("nofdsharing", None, "no_fd_sharing", "bool", False,
+     "Each worker opens its own FDs for given file/bdev paths"),
+    ("nopathexp", None, "no_path_expansion", "bool", False,
+     "Disable {N..M} numeric range expansion in bench paths"),
     ("dirsharing", None, "do_dir_sharing", "bool", False,
      "All threads share the same dirs (d0..dN) instead of per-rank dirs"),
     ("mmap", None, "use_mmap", "bool", False,
@@ -297,8 +329,9 @@ BenchConfigBase = dataclasses.make_dataclass("BenchConfigBase",
 
 
 class BenchConfig(BenchConfigBase):
-    """Typed effective configuration. Derived values (path type, device
-    ids, random amount) are computed by derive()."""
+    """Typed effective configuration. Derived values (the expanded
+    paths, path type, device ids, the random amount's default) are
+    computed by derive()."""
 
     #: the JAX package's bench mode: the port runs POSIX bench paths
     #: only (its object and netbench modes are later slices)
@@ -309,7 +342,6 @@ class BenchConfig(BenchConfigBase):
         self.gpu_ids: "list[int]" = []
         self.bench_path_type: BenchPathType = BenchPathType.DIR
         self.num_dataset_threads: int = self.num_threads
-        self.random_amount = 0
         self.bench_path_fds: "list[int]" = []   # opened by the manager
         # torch device override for the device contexts: None runs on
         # cuda:<gpu id>; "cpu" is for callers that ask for the CPU
@@ -323,6 +355,8 @@ class BenchConfig(BenchConfigBase):
 
     def derive(self) -> "BenchConfig":
         self.gpu_ids = parse_uint_list(self.gpu_ids_str)
+        if not self.no_path_expansion:
+            self.paths = self._expand_path_braces(self.paths)
         self._find_bench_path_type()
         self._detect_blockdev_size()
         self._detect_file_size()
@@ -339,9 +373,10 @@ class BenchConfig(BenchConfigBase):
                 self.gpu_ids = [0]  # default to the first GPU
             if not self.file_size:
                 self.file_size = 256 << 20  # sensible default amount
-        if self.use_random_offsets:
-            # default random amount = full dataset size: one file's size
-            # in dir mode, the striped range over all paths otherwise
+        if self.use_random_offsets and not self.random_amount:
+            # an explicit --randamount stays; the default random amount is
+            # the full dataset size: one file's size in dir mode, the
+            # striped range over all paths otherwise
             if self.bench_path_type != BenchPathType.DIR:
                 self.random_amount = self.file_size * max(1, len(self.paths))
             else:
@@ -396,6 +431,31 @@ class BenchConfig(BenchConfigBase):
         if not self.json_file_path:
             self.json_file_path = \
                 f"{res_dir}/elbencho-tpu_results_{date}.json"
+
+    @staticmethod
+    def _expand_path_braces(paths: "list[str]") -> "list[str]":
+        """"{N..M}" numeric range expansion in bench paths, bash style:
+        counting down when M < N, zero-padded to the wider end when
+        either end has a leading zero, several ranges of one path
+        expanded left to right (reference: ProgArgs path expansion;
+        --nopathexp turns it off)."""
+        import re
+        out: "list[str]" = []
+        pattern = re.compile(r"\{(\d+)\.\.(\d+)\}")
+        for p in paths:
+            m = pattern.search(p)
+            if not m:
+                out.append(p)
+                continue
+            lo_str, hi_str = m.group(1), m.group(2)
+            lo, hi = int(lo_str), int(hi_str)
+            width = max(len(lo_str), len(hi_str)) \
+                if lo_str.startswith("0") or hi_str.startswith("0") else 0
+            step = 1 if hi >= lo else -1
+            for i in range(lo, hi + step, step):
+                out.extend(BenchConfig._expand_path_braces(
+                    [p[:m.start()] + str(i).zfill(width) + p[m.end():]]))
+        return out
 
     def _find_bench_path_type(self) -> None:
         """DIR|FILE|BLOCKDEV via stat; all paths must agree (reference:
@@ -490,10 +550,13 @@ class BenchConfig(BenchConfigBase):
                     f"Given size: {self.file_size}")
 
     def _reduce_file_size_to_block_multiple(self) -> None:
-        """Random IO and the slice phase: a trailing partial block is
-        trimmed with a note (reference: ProgArgs.cpp:1664-1676); a shard
-        block straddling a file boundary would short-read."""
-        if (self.use_random_offsets or self.run_gpu_slice) \
+        """Direct, random and strided IO and the slice phase: a trailing
+        partial block is trimmed with a note (reference:
+        ProgArgs.cpp:1664-1676); a block straddling a file boundary
+        would short-read. Runs before the random amount's default, so
+        that the amount is the trimmed dataset's."""
+        if (self.use_direct_io or self.use_random_offsets
+                or self.do_strided_access or self.run_gpu_slice) \
                 and self.file_size and self.block_size \
                 and (self.run_create_files or self.run_read_files
                      or self.run_gpu_slice) \
@@ -513,6 +576,12 @@ class BenchConfig(BenchConfigBase):
             raise ConfigError("--threads must be >= 1")
         if self.block_size < 1 and self.file_size > 0:
             raise ConfigError("--block must be >= 1")
+        if self.use_direct_io and not self.no_direct_io_check:
+            align = 512
+            if self.file_size % align or self.block_size % align:
+                raise ConfigError(
+                    "direct I/O requires file size and block size to be "
+                    "multiples of 512 bytes (use --nodiocheck to override)")
         if self.bench_path_type != BenchPathType.DIR \
                 and (self.run_create_dirs or self.run_delete_dirs
                      or self.run_stat_dirs):
@@ -551,6 +620,8 @@ class BenchConfig(BenchConfigBase):
                 # both would silently ignore one
                 raise ConfigError(
                     "--madv hugepage and nohugepage are contradictory")
+        if self.use_mmap and self.use_direct_io:
+            raise ConfigError("--mmap and --direct are incompatible")
         if self.use_mmap and self.bench_path_type != BenchPathType.DIR \
                 and len(self.paths) > 1:
             raise ConfigError(
@@ -674,6 +745,15 @@ class BenchConfig(BenchConfigBase):
             create_rand_algo(self.block_variance_algo, seed=0)
         except ValueError as err:
             raise ConfigError(str(err)) from None
+        if self.shuffle_window:
+            if self.use_random_offsets or self.do_reverse_seq_offsets \
+                    or self.do_strided_access or self.use_mmap:
+                raise ConfigError(
+                    "--shufflewindow drives its own offset permutation — "
+                    "incompatible with --rand/--backward/--strided/--mmap")
+            if self.block_size and self.shuffle_window < self.block_size:
+                raise ConfigError(
+                    "--shufflewindow must be at least one --block")
         if self.gpu_batch_blocks > 1 and self.do_gpu_verify:
             # the aggregated copy skips the per-block on-device check
             raise ConfigError(

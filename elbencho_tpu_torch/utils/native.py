@@ -12,7 +12,8 @@ The engine's source is the port's own copy, ``csrc/ioengine.cpp`` (ABI
 11), built with g++ at first use into ``_build/`` by
 ``ops/cuda_build.load_host_library``. The ring's per-op deadline and
 its test-only fault injection (``set_timeout``, ``set_fault``) serve
-``--iotimeout`` and the ``ELBENCHO_TPU_IO_FAULT`` knob. The net and
+``--iotimeout`` and the ``ELBENCHO_TPU_IO_FAULT`` knob, whose
+``first`` schedule (the port's alone) faults no retry. The net and
 registered-pool entry points are later slices. The engine differs from
 the JAX package's ``csrc/ioengine.cpp`` by one lock: one process-wide
 mutex serializes its io_setup and io_destroy syscalls.
@@ -43,21 +44,24 @@ _EILSEQ = errno_mod.EILSEQ  # engine's verify-mismatch return code
 STREAM_FAULT_KINDS = {"eio": 1, "short": 2, "hang": 3}
 
 
-def parse_fault_spec(spec: str) -> "tuple[int, int, int]":
-    """Parse the ELBENCHO_TPU_IO_FAULT test knob: "kind:every_n[:seed]"
-    (kind in eio|short|hang) -> (seed, every_n, kind_code). Raises
-    ValueError on a malformed spec, so a typo fails in the harness
-    instead of injecting nothing."""
+def parse_fault_spec(spec: str) -> "tuple[int, int, int, bool]":
+    """Parse the ELBENCHO_TPU_IO_FAULT test knob:
+    "kind:every_n[:seed[:first]]" (kind in eio|short|hang) -> (seed,
+    every_n, kind_code, first_only). With ``first`` the schedule counts
+    and faults first submits only, never a retry of an op (see
+    NativeStream.resubmit). Raises ValueError on a malformed spec, so a
+    typo fails in the harness instead of injecting nothing."""
     parts = spec.split(":")
-    if len(parts) not in (2, 3) or parts[0] not in STREAM_FAULT_KINDS:
+    if (len(parts) not in (2, 3, 4) or parts[0] not in STREAM_FAULT_KINDS
+            or (len(parts) == 4 and parts[3] != "first")):
         raise ValueError(
             f"malformed ELBENCHO_TPU_IO_FAULT {spec!r} (want "
             f"'eio|short|hang:EVERY_N[:SEED]')")
     every_n = int(parts[1])
-    seed = int(parts[2]) if len(parts) == 3 else 0
+    seed = int(parts[2]) if len(parts) >= 3 else 0
     if every_n <= 0:
         raise ValueError("ELBENCHO_TPU_IO_FAULT every_n must be > 0")
-    return seed, every_n, STREAM_FAULT_KINDS[parts[0]]
+    return seed, every_n, STREAM_FAULT_KINDS[parts[0]], len(parts) == 4
 
 _lock = threading.Lock()
 _engine = None
@@ -176,6 +180,9 @@ class NativeStream:
         self._out_lat = (ctypes.c_uint64 * max_ev)()
         self._out_res = (ctypes.c_int64 * max_ev)()
         self._max_events = max_ev
+        #: (seed, every_n, kind) of a fault schedule that counts first
+        #: submits only (the knob's "first"), else None
+        self._first_only_fault = None
 
     def submit(self, slot: int, fd_idx: int, offset: int, length: int,
                is_write: bool) -> None:
@@ -184,6 +191,26 @@ class NativeStream:
             1 if is_write else 0)
         if ret < 0:
             raise NativeStreamError(-ret, f"stream submit slot {slot}")
+
+    def resubmit(self, slot: int, fd_idx: int, offset: int, length: int,
+                 is_write: bool) -> None:
+        """submit() of a retry of an op that failed (--ioretries). Under a
+        "first" fault schedule the retry goes with the schedule disarmed,
+        and the engine's submit count, which it advances, is given back
+        through the seed: the schedule faults the same first submits as
+        without retries."""
+        fault = self._first_only_fault
+        if fault is None:
+            self.submit(slot, fd_idx, offset, length, is_write)
+            return
+        seed, every_n, kind = fault
+        self._set_fault(seed, 0, kind)
+        try:
+            self.submit(slot, fd_idx, offset, length, is_write)
+        finally:
+            seed = (seed - 1) % every_n
+            self._first_only_fault = (seed, every_n, kind)
+            self._set_fault(seed, every_n, kind)
 
     def reap(self, min_complete: int, timeout_msecs: int,
              interrupt_flag: ctypes.c_int) -> "list[tuple[int, int, int]]":
@@ -212,11 +239,18 @@ class NativeStream:
         if ret < 0:
             raise NativeStreamError(-ret, "stream set_timeout")
 
-    def set_fault(self, seed: int, every_n: int, kind: int) -> None:
+    def set_fault(self, seed: int, every_n: int, kind: int,
+                  first_only: bool = False) -> None:
         """Deterministic fault injection (test only; STREAM_FAULT_KINDS).
-        Op k (by submit order) is faulted when (k+seed) % every_n == 0.
-        A hung op is never submitted to the kernel, so the hang behaves
-        alike on io_uring and kernel AIO."""
+        Op k (by submit order) is faulted when (k+seed) % every_n == 0;
+        with ``first_only`` k counts first submits only, and a retry
+        (resubmit) is never faulted. A hung op is never submitted to the
+        kernel, so the hang behaves alike on io_uring and kernel AIO."""
+        self._set_fault(seed, every_n, kind)
+        self._first_only_fault = ((seed % every_n, every_n, kind)
+                                  if first_only and every_n else None)
+
+    def _set_fault(self, seed: int, every_n: int, kind: int) -> None:
         ret = self._lib.ioengine_stream_set_fault(self._handle, seed,
                                                   every_n, kind)
         if ret < 0:

@@ -343,7 +343,7 @@ def _run_slice_phase_guarded(worker, state, devices, is_lead,
     # dataset geometry: file/bdev mode, one file of file_size per path,
     # striped by device — stripe s places block (s, d) on mesh device d at
     # dataset offset s*stripe_bytes + d*block_size
-    fds = cfg.bench_path_fds
+    fds = worker._path_fds
     if not fds:
         raise WorkerException(
             "--gpuslice requires file/blockdev bench paths (no open "

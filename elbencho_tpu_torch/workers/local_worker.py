@@ -53,6 +53,18 @@ loop, with one through a Python memcpy loop feeding the device's copies.
 slab), ``--fadv`` each file after a write and before a read. The other
 storage back ends are later slices.
 
+Under ``--direct`` every file the block loops and the engine's loops read
+or write is opened with O_DIRECT (the manager's shared fds of file mode,
+a worker's own under ``--nofdsharing``, each dir-mode and tree file); a
+file system that refuses it, or an op that is not aligned as it needs
+(``--nodiocheck``, ``--norandalign``), fails the phase. The offsets come
+from the generators of toolkits/offset_gen.py: sequential, ``--backward``,
+``--strided`` (file mode), ``--rand`` (aligned, or anywhere under
+``--norandalign``, drawn with ``--randalgo``) and the ``--shufflewindow``
+permutation of a read; every loop takes them through ``next_batch`` or
+iteration, and the engine's per-file loop, which walks each file
+forward, leaves a backward or shuffled phase to the block loops.
+
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
 map to GPUs by ``rank % len(gpu_ids)`` and move blocks through a
@@ -76,9 +88,10 @@ from ..ops.fill import fill_verify_pattern_host
 from ..phases import GPU_PROFILE_PHASES, BenchPathType, BenchPhase
 from ..toolkits import logger
 from ..toolkits.file_tk import FileRangeLock
-from ..toolkits.offset_gen import (OffsetGenRandomAligned,
+from ..toolkits.offset_gen import (OffsetGenRandom, OffsetGenRandomAligned,
                                    OffsetGenRandomAlignedFullCoverage,
-                                   OffsetGenSequential, OffsetGenStrided)
+                                   OffsetGenReverseSeq, OffsetGenSequential,
+                                   OffsetGenShuffleWindow, OffsetGenStrided)
 from ..toolkits.ops_logger import OpsLogger
 from ..toolkits.random_algos import RandAlgoGoldenPrime, create_rand_algo
 from ..toolkits.rate_limiter import RateLimiter
@@ -92,6 +105,14 @@ from .shared import WorkerException, WorkerInterruptedException
 
 MKFILE_MODE = 0o644  # reference: MKFILE_MODE, Common.h:96
 MKDIR_MODE = 0o755
+
+
+def direct_flag(cfg) -> int:
+    """O_DIRECT under --direct, else 0: every open of a file that the
+    block loops or the engine's loops read or write takes it. A file
+    system that refuses it fails the phase; no open is retried without
+    it."""
+    return os.O_DIRECT if cfg.use_direct_io else 0
 
 
 class LocalWorker(Worker):
@@ -115,6 +136,10 @@ class LocalWorker(Worker):
         self._gpu = None  # CudaWorkerContext when --gpuids given
         self._native = None  # the native engine, where it can be built
         self._madvise: "list[int]" = []  # --madv advice for each mapping
+        # file mode's path fds: the manager's shared ones, or under
+        # --nofdsharing the worker's own, which cleanup() closes
+        self._path_fds: "list[int]" = []
+        self._own_path_fds: "list[int]" = []
         self._num_iops_submitted = 0
         self._stream_mode_logged = False  # once-per-phase fused-loop note
         self._stream_drain_failed = False  # aborted ring drain: leak bufs
@@ -190,7 +215,10 @@ class LocalWorker(Worker):
                 self._gpu.warmup_transfer()
             if cfg.gpu_profile_dir:
                 self._gpu.profile_warmup()  # its buffers, outside phases
-        self._rand_offset_algo = RandAlgoGoldenPrime(seed=None)
+        if cfg.bench_path_type != BenchPathType.DIR:
+            self._prepare_path_fds()
+        self._rand_offset_algo = create_rand_algo(cfg.rand_offset_algo,
+                                                  seed=None)
         if cfg.block_variance_pct:
             self._block_var_algo = create_rand_algo(cfg.block_variance_algo)
         if cfg.limit_read_bps:
@@ -201,7 +229,29 @@ class LocalWorker(Worker):
             self._ops_log = OpsLogger(cfg.ops_log_path, self.rank,
                                       use_lock=cfg.ops_log_lock)
 
+    def _prepare_path_fds(self) -> None:
+        """File/blockdev mode fds: the manager's shared ones, or under
+        --nofdsharing one of the worker's own per path, opened as the
+        manager opens them (reference: prepareBenchPathFDsVec,
+        ProgArgs.cpp:1981)."""
+        cfg = self.cfg
+        if cfg.bench_path_fds and not cfg.no_fd_sharing:
+            self._path_fds = cfg.bench_path_fds
+            return
+        flags = os.O_RDWR | direct_flag(cfg)
+        if cfg.run_create_files:
+            flags |= os.O_CREAT
+        for p in cfg.paths:
+            # appended one by one: a failed open leaves the ones before
+            # it where cleanup() closes them
+            self._own_path_fds.append(os.open(p, flags, MKFILE_MODE))
+        self._path_fds = self._own_path_fds
+
     def cleanup(self) -> None:
+        for fd in self._own_path_fds:
+            os.close(fd)
+        self._own_path_fds = []
+        self._path_fds = []
         if self._gpu is not None:
             self._gpu.close()  # drop device tensors before buffer teardown
             self._gpu = None
@@ -415,11 +465,14 @@ class LocalWorker(Worker):
 
     def _open_flags_write(self) -> int:
         """A write opens read-write where the same fd also reads: the
-        --rwmixpct reads and the --readinline/--verifydirect read-back."""
+        --rwmixpct reads and the --readinline/--verifydirect read-back;
+        O_DIRECT under --direct."""
         cfg = self.cfg
         if cfg.rwmix_read_pct or cfg.do_read_inline or cfg.do_direct_verify:
-            return os.O_RDWR | os.O_CREAT
-        return os.O_WRONLY | os.O_CREAT
+            flags = os.O_RDWR | os.O_CREAT
+        else:
+            flags = os.O_WRONLY | os.O_CREAT
+        return flags | direct_flag(cfg)
 
     def _write_one_file(self, path: str) -> None:
         cfg = self.cfg
@@ -450,7 +503,7 @@ class LocalWorker(Worker):
             os.close(fd)
 
     def _read_one_file(self, path: str) -> None:
-        fd = os.open(path, os.O_RDONLY)
+        fd = os.open(path, os.O_RDONLY | direct_flag(self.cfg))
         try:
             self._apply_fadvise(fd)
             if self.cfg.file_size:
@@ -463,16 +516,37 @@ class LocalWorker(Worker):
         finally:
             os.close(fd)
 
+    def _make_shuffle_gen(self, num_bytes: int,
+                          start: int = 0) -> OffsetGenShuffleWindow:
+        """--shufflewindow: the seeded windowed permutation, dir mode's
+        and file mode's alike. The JAX package seeds it with
+        ``scenario_epoch * 1_000_003 + rank``, so that its epochs
+        scenario shuffles anew each epoch and the workers do not read in
+        step; the port has no scenarios yet (ROADMAP A item 10), so its
+        epoch is always 0 and the seed is the rank."""
+        bs = self.cfg.block_size
+        return OffsetGenShuffleWindow(
+            num_bytes, bs, max(self.cfg.shuffle_window, bs),
+            seed=self.rank, start=start)
+
     def _make_offset_gen_for_file(self, is_write: bool):
-        """Offsets within one dir-mode file. Random mode reads (or, for
-        writes, covers) the random amount divided by the dataset threads,
-        at least one block, per file: the reference's per-file split
-        (reference: initPhaseRWOffsetGen :1141-1186)."""
+        """Offsets within one dir-mode file: a --shufflewindow read, the
+        random offsets, --backward or sequential; --strided has no
+        meaning within one worker's file and is ignored, as in the JAX
+        package. Random mode reads (or, for writes, covers) the random
+        amount divided by the dataset threads, at least one block, per
+        file: the reference's per-file split (reference:
+        initPhaseRWOffsetGen :1141-1186)."""
         cfg = self.cfg
         size, bs = cfg.file_size, cfg.block_size
+        if not is_write and cfg.shuffle_window:
+            return self._make_shuffle_gen(size)
         if cfg.use_random_offsets:
             amount = max(cfg.random_amount // max(1, cfg.num_dataset_threads),
                          bs)
+            if cfg.no_random_align:
+                return OffsetGenRandom(self._rand_offset_algo, amount, bs,
+                                       range_len=size)
             if is_write:
                 # full-coverage LCG: every block exactly once (default for
                 # aligned random writes, reference LocalWorker.cpp:1177)
@@ -480,6 +554,8 @@ class LocalWorker(Worker):
                     self._rand_offset_algo, amount, bs, range_len=size)
             return OffsetGenRandomAligned(self._rand_offset_algo, amount, bs,
                                           range_len=size)
+        if cfg.do_reverse_seq_offsets:
+            return OffsetGenReverseSeq(size, bs)
         return OffsetGenSequential(size, bs)
 
     # ------------------------------------------------------------------
@@ -494,10 +570,12 @@ class LocalWorker(Worker):
 
     def _can_use_native_file_loop(self, phase: BenchPhase) -> bool:
         """The whole per-file loop runs in the engine when no per-op
-        Python feature is active. The engine walks each file's blocks in
-        order on its sync path, so --rand and the asynchronous engines
-        stay in the block loops; the dir-mode --opslog entry records,
-        --fadv and the --mmap mappings are made in Python."""
+        Python feature is active. The engine walks each file's blocks
+        forward on its sync path, so --rand, --backward, --shufflewindow
+        and the asynchronous engines stay in the block loops; the
+        dir-mode --opslog entry records, --fadv and the --mmap mappings
+        are made in Python. Under --direct the engine opens each file
+        with O_DIRECT."""
         cfg = self.cfg
         return (self._native is not None and self._gpu is None
                 and self._native_loop_blocker() is None
@@ -507,7 +585,9 @@ class LocalWorker(Worker):
                 and cfg.io_depth <= 1
                 and not cfg.fadvise_flags
                 and not cfg.use_mmap
-                and not cfg.use_random_offsets)
+                and not cfg.use_random_offsets
+                and not cfg.do_reverse_seq_offsets
+                and not cfg.shuffle_window)
 
     def _run_native_file_loop(self, phase: BenchPhase) -> None:
         """Dir mode through the engine's per-file loop. A write or read
@@ -552,7 +632,7 @@ class LocalWorker(Worker):
         def call():
             self._native.run_file_loop(
                 paths, op, self._open_flags_write() if op == "write"
-                else os.O_RDONLY,
+                else os.O_RDONLY | direct_flag(self.cfg),
                 cfg.file_size, cfg.block_size,
                 self._staging_pool.slot_addrs[0],
                 self._partial_tolerance(phase), self,
@@ -681,7 +761,7 @@ class LocalWorker(Worker):
                 os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
                 fd = os.open(path, self._open_flags_write(), MKFILE_MODE)
             else:
-                fd = os.open(path, os.O_RDONLY)
+                fd = os.open(path, os.O_RDONLY | direct_flag(self.cfg))
             try:
                 if gen.num_bytes:
                     self._rw_block_sized(fd, gen, is_write=is_write)
@@ -759,7 +839,7 @@ class LocalWorker(Worker):
                 self.live_ops.num_entries_done += 1
             return
         is_write = (phase == BenchPhase.CREATEFILES)
-        fds = cfg.bench_path_fds
+        fds = self._path_fds
         gen = self._make_file_mode_offset_gen(is_write,
                                               cfg.file_size * len(fds))
         if gen is None:
@@ -805,8 +885,12 @@ class LocalWorker(Worker):
         return True
 
     def _make_file_mode_offset_gen(self, is_write: bool, total_range: int):
-        """Per-worker share of the file: seq mode slices a contiguous range
-        per dataset thread; rand mode divides the random amount."""
+        """Per-worker share of the files' range: random mode divides the
+        random amount; --strided interleaves the blocks, worker r taking
+        every dataset-thread-th block from block r; else each dataset
+        thread takes a contiguous slice, read in a --shufflewindow
+        permutation, backward or forward (reference: initPhaseRWOffsetGen,
+        SURVEY.md section 2.4 "Shared-file striping")."""
         cfg = self.cfg
         bs = cfg.block_size
         ndst = max(1, cfg.num_dataset_threads)
@@ -815,6 +899,9 @@ class LocalWorker(Worker):
             amount = cfg.random_amount // ndst
             if amount < bs:
                 return None
+            if cfg.no_random_align:
+                return OffsetGenRandom(self._rand_offset_algo, amount, bs,
+                                       range_len=total_range)
             if is_write:
                 # full-coverage LCG: every block exactly once (default for
                 # aligned random writes, reference LocalWorker.cpp:1177)
@@ -822,12 +909,25 @@ class LocalWorker(Worker):
                     self._rand_offset_algo, amount, bs, range_len=total_range)
             return OffsetGenRandomAligned(self._rand_offset_algo, amount, bs,
                                           range_len=total_range)
+        if cfg.do_strided_access:
+            num_blocks = total_range // bs
+            blocks_per_worker = num_blocks // ndst + \
+                (1 if rank < num_blocks % ndst else 0)
+            if not blocks_per_worker:
+                return None
+            return OffsetGenStrided(blocks_per_worker * bs, bs, ndst,
+                                    rank=rank)
         slice_len = total_range // ndst
         slice_start = rank * slice_len
         if rank == ndst - 1:
             slice_len = total_range - slice_start  # last takes remainder
         if not slice_len:
             return None
+        if not is_write and cfg.shuffle_window:
+            # each worker permutes its own contiguous slice
+            return self._make_shuffle_gen(slice_len, start=slice_start)
+        if cfg.do_reverse_seq_offsets:
+            return OffsetGenReverseSeq(slice_len, bs, start=slice_start)
         return OffsetGenSequential(slice_len, bs, start=slice_start)
 
     # ------------------------------------------------------------------
@@ -1175,7 +1275,7 @@ class LocalWorker(Worker):
             except IoRetryBudgetExhausted:
                 raise err from None
             slot_op[slot] = (i, fdi, r_off, length, rd, attempts + 1)
-            stream.submit(slot, fdi, r_off, length, not rd)
+            stream.resubmit(slot, fdi, r_off, length, not rd)
 
         def reap_some(min_complete: int) -> None:
             nonlocal reaped_bytes

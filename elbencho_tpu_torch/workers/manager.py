@@ -15,7 +15,7 @@ import threading
 import time
 
 from ..phases import BenchPathType, BenchPhase
-from .local_worker import LocalWorker
+from .local_worker import LocalWorker, direct_flag
 from .shared import WorkerException, WorkersSharedData
 
 #: periodic wakeup for the time-limit and fail-fast checks, here and in
@@ -47,13 +47,15 @@ class WorkerManager:
         self._wait_for_prep_done()
 
     def _open_shared_path_fds(self) -> None:
-        """Open each file/bdev bench path once, shared across workers
-        (reference: prepareBenchPathFDsVec, ProgArgs.cpp:1981). Dir mode
-        opens its files per entry, so a directory path gets no fd."""
+        """Open each file/bdev bench path once, shared across workers,
+        with O_DIRECT under --direct (reference: prepareBenchPathFDsVec,
+        ProgArgs.cpp:1981). Dir mode opens its files per entry, so a
+        directory path gets no fd; under --nofdsharing each worker opens
+        its own (LocalWorker._prepare_path_fds)."""
         cfg = self.cfg
-        if cfg.bench_path_type == BenchPathType.DIR:
+        if cfg.bench_path_type == BenchPathType.DIR or cfg.no_fd_sharing:
             return
-        flags = os.O_RDWR
+        flags = os.O_RDWR | direct_flag(cfg)
         if cfg.run_create_files:
             flags |= os.O_CREAT
         for p in cfg.paths:

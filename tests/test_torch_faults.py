@@ -367,6 +367,32 @@ def test_fused_ring_faults_equal_the_jax_package(both, monkeypatch, case):
         assert rec["IoTimeouts"] == 0
 
 
+@pytest.mark.parametrize("kind", ["short", "hang"])
+def test_fused_ring_first_fault_schedule_faults_no_retry(both, monkeypatch,
+                                                         kind):
+    """The knob's "first" schedule in the ring (the port's alone): every
+    first submit of the 32 ops is faulted and no retry is, so one retry
+    per op carries the read, with IoRetries 32, in any completion order;
+    the schedule of every submit, the JAX package's, faults the retries
+    too and spends them."""
+    monkeypatch.setenv("ELBENCHO_TPU_TESTING", "1")
+    monkeypatch.delenv("ELBENCHO_TPU_IO_FAULT", raising=False)
+    assert both("port", ["-w", *RING, "--verify", "11"])[0] == 0
+    flags = ["--iotimeout", "1"] if kind == "hang" else []
+    read = ["-r", *RING, "--gpuids", "0", "--gpustream", "on",
+            "--ioretries", "1", "--verify", "11", *flags]
+    monkeypatch.setenv("ELBENCHO_TPU_IO_FAULT", f"{kind}:1:0:first")
+    rc, recs = both("port", read)
+    assert rc == 0
+    (rec,) = recs
+    assert (rec["TpuStreamFusedOps"], rec["BytesLast"], rec["IoRetries"]) \
+        == (32, 512 << 10, 32)
+    assert rec["IoTimeouts"] == (32 if kind == "hang" else 0)
+    if kind == "short":
+        monkeypatch.setenv("ELBENCHO_TPU_IO_FAULT", "short:1")
+        assert both("port", read)[0] != 0
+
+
 @pytest.mark.parametrize("netfs,retries", [(True, False), (False, True)])
 def test_fused_ring_eio_fails_fast_as_the_jax_package(both, monkeypatch,
                                                       capsys, netfs,

@@ -361,6 +361,45 @@ def test_stream_ring_over_the_staging_slots(tmp_path):
         pool.close()
 
 
+@pytest.mark.parametrize("first_only", [False, True])
+def test_a_first_fault_schedule_never_faults_a_retry(tmp_path, first_only):
+    """The ring's fault knob with every op short (short:1): the engine's
+    schedule, the JAX package's, counts every submit and faults a retry
+    too; with "first" (short:1:0:first) a retry (resubmit) is neither
+    faulted nor counted, so the next first submit is faulted as
+    if no retry had been made."""
+    from elbencho_tpu_torch.utils.staging_pool import StagingPool
+    assert port_native.parse_fault_spec("short:1:0:first") == (0, 1, 2, True)
+    assert port_native.parse_fault_spec("hang:13:2") == (2, 13, 3, False)
+    for bad in ("short:5:0:last", "short:5:0:first:1"):
+        with pytest.raises(ValueError, match="malformed"):
+            port_native.parse_fault_spec(bad)
+    engine = port_native.get_native_engine()
+    path = tmp_path / "f"
+    path.write_bytes(bytes(4 * 4096))
+    pool = StagingPool(1, 4096)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        stream = engine.open_stream([fd], pool.slot_addrs, 4096)
+        stream.set_fault_from_spec("short:1:0:first" if first_only
+                                   else "short:1")
+        got = []
+        for off, retry in ((0, False), (0, True), (4096, False),
+                           (4096, True), (8192, True)):
+            (stream.resubmit if retry else stream.submit)(
+                0, 0, off, 4096, is_write=False)
+            events = []
+            while not events:
+                events = stream.reap(1, 1000, ctypes.c_int(0))
+            got.append(events[0][2])
+        full = 4096 if first_only else 2048
+        assert got == [2048, full, 2048, full, full]
+        assert stream.close() == 0
+    finally:
+        os.close(fd)
+        pool.close()
+
+
 class _OverlapRecorder:
     """The engine library with its AIO-context calls (the stream probe,
     open and close) timed: records the most of them ever in flight at
