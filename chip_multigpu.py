@@ -10,26 +10,30 @@ mesh slot per card (it needs two or more):
    buffer equals the plain version (torch indexing of the stripe), the
    folded fingerprint the host's with one kernel launch per device part,
    and a stripe with one flipped word is refused;
-2. ``make_ingest_step`` over the same mesh: the scrambled shards and the
-   global (sum, xor) against numpy's;
-3. chip_smoke.py's ``CollectiveBench`` check over every device, each
+2. chip_smoke.py's ``CollectiveBench`` check over every device, each
    collective pattern: one step on random input against
    ``collective_plain`` (per device for ``ici``);
-4. the CLI: ``--gpuslice`` without --gpuids, so that its mesh is every
+3. the CLI: ``--gpuslice`` without --gpuids, so that its mesh is every
    device, on a 1 GiB file at -t 4 -b 16M, --redistspec alltoall and
    replicate (records, stripes and launches checked), and each
    collective ``--gpubench`` pattern at -s 1G -b 16M with --gpuids
    naming every device (--gpubench alone means --gpuids 0, as in the
    JAX package): bytes and ops;
-5. the staging slots' registration flags: a mapping registered with
+4. the staging slots' registration flags: a mapping registered with
    GPU 0 current, under flags 0 (the staging pool's) and
    cudaHostRegisterPortable, as every card sees it (is_pinned, a
    non_blocking copy's call and done times);
-6. ``--gpufallback chip``: GPU 0 lost (simulated) mid-read of a
+5. ``--gpufallback chip``: GPU 0 lost (simulated) mid-read of a
    -r -t n --gpudirect --gpuverify run over every card, 1 GiB a worker:
    exit 0, TpuChipFailovers 1, the worker's copies go on on the survivor
    its log line names, from slots page-locked there, every block
-   verified on a card.
+   verified on a card;
+6. ``dryrun_multigpu(n)`` over the n distinct cards, sized as
+   chip_smoke.py's placement pass sizes it on one: the ingest step at
+   tiny, 1 MiB and 16 MiB shards with pass 2's build-cache check in a
+   fresh process, the five collectives all at n (NCCL for the
+   reductions), and the measured --gpuslice capture at -s 1G -b 16M over
+   every card (its MULTIGPU_MEASURED line), launches counted exactly.
 
 It prints each check and time on a line of its own, the cards' names and
 power limits, and last one JSON line ``{"ok": true, "devices": n}``; any
@@ -55,38 +59,6 @@ FAILOVER_PER_WORKER = 1 << 30  # the failover read's bytes a worker
 PROBE_BYTES = 256 << 20        # the registration-flag probe's mapping
 CUDA_HOST_REGISTER_PORTABLE = 1  # cuda_runtime_api.h
 PATTERNS = ("ici", "allgather", "reducescatter", "alltoall", "psum")
-
-
-def ingest_step_check(mesh, smoke) -> None:
-    import numpy as np
-    from elbencho_tpu_torch.ops.verify import fingerprint_u32
-    from elbencho_tpu_torch.parallel.ingest import (host_shard_to_devices,
-                                                    make_ingest_step,
-                                                    shard_slices)
-    hosts, chips = mesh.shape
-    rows, cols = 64 * hosts, 4096 * chips
-    rng = np.random.default_rng(5)
-    batch, bits = (rng.integers(0, 1 << 32, size=(rows, cols),
-                                dtype=np.uint64).astype(np.uint32)
-                   for _ in range(2))
-    shards = host_shard_to_devices(mesh, batch)
-    bit_shards = host_shard_to_devices(mesh, bits)
-    before = fingerprint_u32.launches.count
-    out, total, xor = make_ingest_step(mesh)(shards, bit_shards)
-    launches = fingerprint_u32.launches.count - before
-    want = batch ^ bits
-    for o, (rs, cs), dev in zip(out, shard_slices(mesh, rows, cols),
-                                mesh.devices.flat):
-        if o.device != dev or not np.array_equal(
-                o.cpu().numpy().view(np.uint32), want[rs, cs]):
-            smoke.fail(f"ingest step: the shard on {dev} != numpy's xor")
-    want_fp = (int(want.sum(dtype=np.uint64)) & smoke.MASK,
-               int(np.bitwise_xor.reduce(want.reshape(-1))))
-    if (total, xor) != want_fp or launches != mesh.devices.size:
-        smoke.fail(f"ingest step: ({total:#x}, {xor:#x}) vs numpy "
-                   f"{want_fp}, {launches} launches")
-    print(f"  make_ingest_step {hosts}x{chips}: every shard and the global "
-          f"(sum, xor) equal numpy's, {launches} launches")
 
 
 def cli_checks(work: str, n: int, smoke) -> None:
@@ -270,6 +242,30 @@ def failover_check(work: str, n: int, smoke) -> None:
     os.unlink(path)
 
 
+def dryrun_check(work: str, n: int, smoke) -> None:
+    from elbencho_tpu_torch.entry import dryrun_multigpu
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    size, block = smoke.PLACEMENT_CAPTURE
+    fingerprint_u32.launches.reset()
+    t0 = time.monotonic()
+    measured = dryrun_multigpu(n, shard_mib=smoke.PLACEMENT_SHARD_MIB,
+                               file_size=f"{size >> 20}M",
+                               block_size=f"{block >> 20}M", work_dir=work)
+    launches = fingerprint_u32.launches.count
+    stripes = size // (n * block)
+    want = smoke.dryrun_launches(n, n)
+    if launches != want or measured["n_devices"] != n \
+            or measured["stripes"] != stripes \
+            or len(measured["per_chip_bytes"]) != n:
+        smoke.fail(f"dryrun_multigpu({n}): {launches} launches (want "
+                   f"{want}), capture {measured}")
+    print(f"  dryrun_multigpu({n}) over {n} cards: "
+          f"{time.monotonic() - t0:.1f} s, {launches} launches; capture "
+          f"{measured['value']} MiB/s, redistribution "
+          f"{measured['ici_redist_usec'] / stripes:.1f} us/stripe, best "
+          f"{measured['ici_gbps_hwm']} Gbit/s")
+
+
 def main() -> int:
     import torch
     sys.path.insert(0, REPO)
@@ -292,7 +288,6 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     try:
         smoke.check_slice_runner(devices, gen)
-        ingest_step_check(mesh, smoke)
         for pattern in PATTERNS:
             route = smoke.check_collective_step(pattern, devices, gen)
             print(f"  CollectiveBench {pattern} over {n} devices, route "
@@ -300,6 +295,7 @@ def main() -> int:
         cli_checks(work, n, smoke)
         register_flags_probe(n, smoke)
         failover_check(work, n, smoke)
+        dryrun_check(work, n, smoke)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for line in smi.stdout.strip().splitlines():

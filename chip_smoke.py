@@ -247,7 +247,23 @@ without printing a result otherwise. In order it:
    /proc/sys/vm/drop_caches is patched, so that nothing is written
    there; prints each run's MiB/s, the SYNC phases' elapsed times and
    the pass's wall time, which must stay within LIFECYCLE_LIMIT_S (90 s);
-21. prints the kernel line {"kernels": [...]} and, last, the result line
+21. placing the work on the devices and cores of the host
+   (placement_pass), after 20 and before 11: dryrun_multigpu(1) over the
+   card and dryrun_multigpu(4) over four slots of it (the ingest step at
+   tiny, 1 MiB and 16 MiB shards, with a fresh process that must find
+   the built kernel in _build/; the five collectives; the measured
+   --gpuslice capture at -s 1G -b 16M and its MULTIGPU_MEASURED line),
+   launches counted exactly; then on a 2 GiB file at -r -t 4 -b 16M
+   --iodepth 4 --gpuids 0: --cores with every core of the process's
+   affinity under --gpudirect (each worker's thread on cores[rank %
+   len]), and --zones 0 staged and --gpudirect, held to what a probe of
+   the machine's NUMA sysfs and memory-policy calls finds (printed, with
+   the case that held: MPOL_BIND on node 0 for each worker's thread and
+   every slot where the calls read back, the JAX package's "not found"
+   line where node 0 is missing), the --gpudirect slots page-locked;
+   prints each read's MiB/s beside its twin's without the flag and the
+   pass's wall time, which must stay within PLACEMENT_LIMIT_S (90 s);
+22. prints the kernel line {"kernels": [...]} and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero. The whole run, kernel build included, must
@@ -1649,17 +1665,10 @@ def check_slice_runner(devices, gen) -> None:
 def check_collective_step(pattern: str, devices, gen) -> str:
     """One step of a collective pattern over ``devices`` on random input
     against its plain version (per device for ici); returns the route."""
-    import torch
-    from elbencho_tpu_torch.workers.gpubench import (CollectiveBench,
-                                                     collective_plain)
+    from elbencho_tpu_torch.workers.gpubench import CollectiveBench
     bench = CollectiveBench(pattern, devices, MAIN_BLOCK)
     bench.arrays = [rand_words(MAIN_BLOCK // 4, gen, d) for d in devices]
-    got = bench.compute()
-    want = collective_plain(pattern, bench.arrays)
-    same = all(g.device == w.device and torch.equal(g, w)
-               for g, w in zip(got, want)) \
-        if pattern == "ici" else got == want
-    if not same:
+    if not bench.equals_plain():
         fail(f"CollectiveBench {pattern} over {mesh_name(devices)}: one "
              f"step differs from the plain version")
     return bench.route
@@ -4066,6 +4075,274 @@ def lifecycle_pass(work: str) -> int:
     return total
 
 
+PLACEMENT_LIMIT_S = 90          # the most the placement pass may take
+PLACEMENT_SIZE = 2 << 30        # -s 2g of its --cores and --zones reads
+PLACEMENT_SHARD_MIB = (1, 16)   # dryrun pass 2's shards: 1 MiB, the -b 16M
+PLACEMENT_CAPTURE = (1 << 30, MAIN_BLOCK)  # the capture's -s 1G -b 16M
+PLACEMENT_SLOTS = (1, 4)        # dryrun_multigpu(n) over these many slots
+
+
+def placement_probe() -> dict:
+    """What this machine offers --zones, tried on a thread of its own:
+    NUMA sysfs, node 0's CPUs, whether the thread can be bound to them,
+    and whether MPOL_BIND on node 0 reads back through get_mempolicy for
+    the thread (set_mempolicy) and for an mmap'd buffer (mbind)."""
+    import ctypes
+    import mmap
+    from elbencho_tpu_torch.utils import numa
+    bound = (numa.MPOL_BIND, 1)
+    probe = {"sysfs": numa.numa_is_available(),
+             "node0_cpus": sorted(numa._node_cpus(0))}
+
+    def tries():
+        try:
+            os.sched_setaffinity(0, set(probe["node0_cpus"]))
+            probe["affinity"] = True
+        except (OSError, ValueError):
+            probe["affinity"] = False
+        probe["thread_bind"] = numa.set_thread_mempolicy_bind(0) \
+            and numa.get_thread_mempolicy() == bound
+        numa.reset_thread_mempolicy()
+        m = mmap.mmap(-1, 1 << 20)
+        addr = ctypes.addressof(ctypes.c_char.from_buffer(m))
+        probe["buffer_bind"] = numa.mbind_buffer(addr, 1 << 20, 0) \
+            and numa.get_buffer_policy(addr) == bound
+        m.close()
+
+    thread = threading.Thread(target=tries)
+    thread.start()
+    thread.join()
+    return probe
+
+
+@contextlib.contextmanager
+def prepared_workers():
+    """A spy on LocalWorker.prepare: on each worker's thread, after its
+    preparation, its affinity, thread memory policy and zone, the policy
+    of each I/O slot, and whether the slots are page-locked; yields
+    {rank: record}."""
+    import torch
+    from elbencho_tpu_torch.utils import numa
+    from elbencho_tpu_torch.workers.local_worker import LocalWorker
+    seen: "dict[int, dict]" = {}
+    real = LocalWorker.prepare
+
+    def spy(self):
+        real(self)
+        pool = self._staging_pool
+        seen[self.rank] = {
+            "affinity": sorted(os.sched_getaffinity(0)),
+            "thread": numa.get_thread_mempolicy(),
+            "zone": self._numa_zone,
+            "slots": [numa.get_buffer_policy(a) for a in pool.slot_addrs],
+            "pinned": all(torch.frombuffer(v, dtype=torch.uint8).is_pinned()
+                          for v in pool.views)}
+
+    LocalWorker.prepare = spy
+    try:
+        yield seen
+    finally:
+        LocalWorker.prepare = real
+
+
+def zone_pool_check(bound) -> None:
+    """Where mbind reads back, a staging pool of the main path's slots
+    bound to zone 0 and page-locked (its slots and a registered aux slab,
+    as a --zones --gpudirect worker's would be): every slot and aux
+    buffer must report MPOL_BIND on node 0 and be pinned."""
+    import ctypes
+    import torch
+    from elbencho_tpu_torch.utils import numa
+    from elbencho_tpu_torch.utils.staging_pool import StagingPool
+    pool = StagingPool(4, MAIN_BLOCK, numa_zone=0)
+    try:
+        pool.register_slots()
+        aux = pool.alloc_aux(2, MAIN_BLOCK, register=True)
+        addrs = pool.slot_addrs + [
+            ctypes.addressof(ctypes.c_char.from_buffer(mv)) for mv in aux]
+        policies = {numa.get_buffer_policy(a) for a in addrs}
+        pinned = all(torch.frombuffer(v, dtype=torch.uint8).is_pinned()
+                     for v in pool.views + aux)
+        if policies != {bound} or not pinned:
+            fail(f"a staging pool bound to zone 0: policies {policies}, "
+                 f"pinned {pinned}")
+        print(f"  StagingPool(4 x 16 MiB, numa_zone=0), registered, and a "
+              f"registered aux slab: policies {policies}, pinned {pinned} "
+              f"(mbind, then cudaHostRegister)")
+    finally:
+        pool.close()
+
+
+def dryrun_launches(n: int, n_mesh: int) -> int:
+    """The fingerprint launches of dryrun_multigpu(n) as placement_pass
+    calls it: one per shard in each ingest step (pass 1, pass 2 twice per
+    shard size), and one per mesh device and stripe plus one warm-up in
+    each of the capture's two --gpuslice runs."""
+    stripes = PLACEMENT_CAPTURE[0] // (n_mesh * PLACEMENT_CAPTURE[1])
+    return n * (1 + 2 * len(PLACEMENT_SHARD_MIB)) \
+        + 2 * n_mesh * (stripes + 1)
+
+
+def placement_pass(work: str) -> int:
+    """Placing the work on the devices and cores of the host; returns the
+    fingerprint launches. Each run's device MiB/s beside its twin's (the
+    same read without the flag) and the pass's wall time are printed,
+    and the pass must end within PLACEMENT_LIMIT_S.
+
+    (a) dryrun_multigpu(1) over the card and dryrun_multigpu(4) over four
+        slots of it: the ingest step at tiny, 1 MiB and 16 MiB shards
+        (pass 2 with a fresh process that must find the built kernel in
+        _build/), the five collectives (the reductions over the distinct
+        card), and the measured -w --gpuslice capture at -s 1G -b 16M
+        (over the one card: n_devices 1), each with its launches counted
+        exactly and its MULTIGPU_MEASURED line.
+    (b) --cores with every core of this process's affinity on -r -t 4
+        -b 16M --iodepth 4 --gpuids 0 --gpudirect of a 2 GiB file: each
+        worker's thread must be bound to cores[rank % len].
+    (c) --zones 0 on the same read, staged and --gpudirect. Where NUMA
+        sysfs lists node 0 and set_mempolicy takes MPOL_BIND (probed
+        first, printed), each worker's thread policy and every slot must
+        be MPOL_BIND on node 0, and under --gpudirect the slots page-
+        locked too; where sysfs lacks the node, each worker must log the
+        JAX package's "not found" line, run unbound and exit 0; where the
+        node is listed but the policy calls are refused, the threads are
+        bound to its CPUs, the refusals logged, and the run exits 0. The
+        pass prints which case held. Where mbind reads back, whatever
+        sysfs lists, a staging pool bound to zone 0 and page-locked
+        (zone_pool_check) must report MPOL_BIND and pinned slots."""
+    import torch
+    from elbencho_tpu_torch.entry import dryrun_multigpu
+    from elbencho_tpu_torch.ops.verify import fingerprint_u32
+    from elbencho_tpu_torch.utils import numa
+    t_start = time.monotonic()
+    total = 0
+    cards = torch.cuda.device_count()
+    print("placement pass (a): dryrun_multigpu")
+    for n in PLACEMENT_SLOTS:
+        n_mesh = min(n, cards)
+        fingerprint_u32.launches.reset()
+        t0 = time.monotonic()
+        measured = dryrun_multigpu(
+            n, shard_mib=PLACEMENT_SHARD_MIB,
+            file_size=f"{PLACEMENT_CAPTURE[0] >> 20}M",
+            block_size=f"{PLACEMENT_CAPTURE[1] >> 20}M", work_dir=work)
+        launches = fingerprint_u32.launches.count
+        secs = time.monotonic() - t0
+        stripes = PLACEMENT_CAPTURE[0] // (n_mesh * PLACEMENT_CAPTURE[1])
+        want = dryrun_launches(n, n_mesh)
+        if launches != want or measured["n_devices"] != n_mesh \
+                or measured["stripes"] != stripes \
+                or measured["tier"] != "cuda_devices" \
+                or sum(measured["per_chip_bytes"].values()) \
+                != PLACEMENT_CAPTURE[0]:
+            fail(f"dryrun_multigpu({n}): {launches} launches (want {want}), "
+                 f"capture {measured}")
+        total += launches
+        print(f"  dryrun_multigpu({n}): {secs:.1f} s, {launches} launches; "
+              f"capture {measured['value']} MiB/s over {n_mesh} device(s), "
+              f"redistribution "
+              f"{measured['ici_redist_usec'] / stripes:.1f} us/stripe, "
+              f"best {measured['ici_gbps_hwm']} Gbit/s")
+
+    path = os.path.join(work, "placement.bin")
+    json_path = os.path.join(work, "placement.json")
+    read = ["-r", "-t", "4", "-b", f"{MAIN_BLOCK >> 20}M", "--iodepth", "4",
+            "--gpuids", "0", path]
+    blocks = PLACEMENT_SIZE // MAIN_BLOCK
+    rates: "dict[str, float]" = {}
+
+    def read_run(name, flags):
+        (rec,), launches = run_pass(name, [*read[:-1], *flags, path],
+                                    json_path, ["READ"])
+        expect(name, rec, BytesLast=PLACEMENT_SIZE,
+               TpuHbmBytes=PLACEMENT_SIZE, ops=blocks, device_ops=blocks)
+        if launches:
+            fail(f"pass '{name}': {launches} fingerprint launches, want 0")
+        rates[name] = rec["TpuHbmMiBPerSec"]
+        return rec
+
+    try:
+        run_pass("-w the placement file",
+                 ["-w", "-t", "2", "-b", f"{MAIN_BLOCK >> 20}M", "-s",
+                  f"{PLACEMENT_SIZE >> 20}M", "--iodepth", "4", "--gpuids",
+                  "0", path], json_path, ["WRITE"])
+        cores = sorted(os.sched_getaffinity(0))
+        print(f"placement pass (b): --cores {','.join(map(str, cores))}")
+        read_run("-r --gpudirect", ["--gpudirect"])
+        with prepared_workers() as seen:
+            read_run("-r --gpudirect --cores",
+                     ["--gpudirect", "--cores", ",".join(map(str, cores))])
+        got = {rank: p["affinity"] for rank, p in sorted(seen.items())}
+        if got != {r: [cores[r % len(cores)]] for r in range(4)}:
+            fail(f"--cores: the workers' affinities are {got}")
+        print(f"  --cores: worker affinities {got}; device "
+              f"{rates['-r --gpudirect --cores']} MiB/s beside "
+              f"{rates['-r --gpudirect']} without")
+
+        probe = placement_probe()
+        print(f"placement pass (c): --zones 0; probe {json.dumps(probe)}")
+        zone_bound = bool(probe["node0_cpus"]) and probe["affinity"]
+        case = ", ".join(
+            ["node 0 listed" if probe["node0_cpus"] else "no NUMA node 0"]
+            + (["threads bound to its CPUs"] if zone_bound else [])
+            + ([f"{what} reads back MPOL_BIND"
+                if probe[key] else f"{what} not applied"
+                for key, what in (("thread_bind", "thread policy"),
+                                  ("buffer_bind", "slab policy"))]
+               if zone_bound else []))
+        bound = (numa.MPOL_BIND, 1)
+        if probe["buffer_bind"]:
+            zone_pool_check(bound)
+        for mode, flags in (("staged", []), ("--gpudirect", ["--gpudirect"])):
+            twin = "-r --gpudirect" if flags else "-r staged"
+            if twin not in rates:
+                read_run(twin, flags)
+            name = f"-r --zones 0 {mode}"
+            err = _Tee(sys.stderr)
+            with prepared_workers() as seen, contextlib.redirect_stderr(err):
+                read_run(name, [*flags, "--zones", "0"])
+            text = err.text.getvalue()
+            missing = text.count("NUMA zone 0 not found or empty; skipping "
+                                 "binding")
+            if missing != (0 if probe["node0_cpus"] else 4):
+                fail(f"{name}: {missing} 'not found' lines in case '{case}'")
+            for rank, p in sorted(seen.items()):
+                problems = []
+                if flags and not p["pinned"]:
+                    problems.append("slots not page-locked")
+                if p["zone"] != (0 if zone_bound else None):
+                    problems.append(f"zone {p['zone']}")
+                if zone_bound and not set(p["affinity"]) \
+                        <= set(probe["node0_cpus"]):
+                    problems.append(f"affinity {p['affinity']}")
+                if zone_bound and probe["thread_bind"] \
+                        and p["thread"] != bound:
+                    problems.append(f"thread policy {p['thread']}")
+                if zone_bound and probe["buffer_bind"] \
+                        and set(p["slots"]) != {bound}:
+                    problems.append(f"slot policies {set(p['slots'])}")
+                if problems:
+                    fail(f"{name}: worker {rank} in case '{case}': "
+                         f"{'; '.join(problems)}")
+            logged = sorted({ln.split(" ERROR: ", 1)[1].split(":")[0]
+                             for ln in text.splitlines()
+                             if " ERROR: " in ln})
+            print(f"  {name}: case '{case}'; worker 0 zone {seen[0]['zone']}, "
+                  f"thread policy {seen[0]['thread']}, slot policies "
+                  f"{sorted(set(seen[0]['slots']), key=str)}, pinned "
+                  f"{seen[0]['pinned']}; logged {logged}; device "
+                  f"{rates[name]} MiB/s beside {rates[twin]} without")
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(path)
+    secs = time.monotonic() - t_start
+    print(f"placement pass: {secs:.1f} s, {total} fingerprint launches")
+    if secs > PLACEMENT_LIMIT_S:
+        fail(f"the placement pass took {secs:.1f} s, over its "
+             f"{PLACEMENT_LIMIT_S} s")
+    return total
+
+
 def corruption_run(work: str) -> None:
     path = os.path.join(work, "smoke.bin")
     rc, _ = run_cli(["-w", "-t", "2", "-b", "16M", "-s", f"{MAIN_SIZE >> 20}M",
@@ -4180,6 +4457,7 @@ def main() -> int:
         launches += mmap_pass(work)
         launches += access_pass(work)
         launches += lifecycle_pass(work)
+        launches += placement_pass(work)
         launches += entry_pass(dev)
         kernel["launches"] = launches
     finally:

@@ -41,7 +41,10 @@ hugepage ladder, and ``--fadv``) and direct I/O (``--direct``,
 ``--nodelerr``, the ``--sync`` and ``--dropcaches`` phases between the
 others (``--dropcache`` is the reference's spelling), ``--dirstats``,
 which the JAX package parses and reads nowhere, and ``--log``, the log
-level). Bench paths take bash's ``{N..M}``
+level) and worker placement (``--zones``, ``--cores``: each worker
+thread bound round-robin to a NUMA zone, with its staging slabs, or to a
+core; a list that does not parse fails each worker's preparation, as in
+the JAX package). Bench paths take bash's ``{N..M}``
 numeric ranges (``/mnt/f{1..4}`` is four paths) unless ``--nopathexp``.
 The other storage back ends (and with them the bucket scan of
 ``--treescan``) and the remaining flags are later slices (ROADMAP.md
@@ -318,6 +321,11 @@ FLAG_DEFS = [
      "Serialize ops log writes via file lock (for shared-file logs)"),
     ("configfile", "c", "config_file_path", "str", "",
      "Read benchmark settings from this file (ini-style: flag = value)"),
+    # NUMA/core binding of the worker threads (utils/numa.py)
+    ("zones", None, "numa_zones_str", "str", "",
+     "Comma-separated NUMA zones to bind workers to (round-robin)"),
+    ("cores", None, "cpu_cores_str", "str", "",
+     "Comma-separated CPU cores to bind workers to (round-robin)"),
     # custom tree
     ("treefile", None, "tree_file_path", "str", "",
      "Path to custom tree file (see elbencho-tpu-scan-path)"),

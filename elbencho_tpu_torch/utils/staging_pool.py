@@ -13,7 +13,7 @@ The I/O slots' slab takes the JAX package's hugepage ladder: a
 ``MADV_HUGEPAGE`` under ``--madv hugepage`` and ``MADV_NOHUGEPAGE`` under
 ``nohugepage`` (advice the kernel refuses is ignored: it is advisory).
 ``hugepage_backed`` says which mapping the slots got. The auxiliary slabs
-are always normal mappings, as in the JAX package.
+are always normal mappings (the JAX package's take the ladder too).
 
 Under ``--gpudirect`` the device context has the slot slab registered
 ONCE with the CUDA driver (``cudaHostRegister``, upstream elbencho's
@@ -23,8 +23,15 @@ JAX package's pool-wide io_uring fixed-buffer registration: the fused
 ``--gpustream`` ring registers the slots (``slot_addrs``) as fixed
 buffers of its own per-phase ring. A ``cudaHostRegister`` that fails
 raises: the port has no unregistered fallback, whichever mapping the
-slab got. NUMA binding, the pool-registered persistent ring and SQPOLL
-are not ported.
+slab got. The pool-registered persistent ring and SQPOLL are not ported.
+
+Under ``--zones`` the pool takes the worker's zone (``numa_zone``), and
+every slab, the I/O slots' and each ``alloc_aux`` one, is ``mbind``-ed
+to it (MPOL_BIND, MPOL_MF_MOVE; utils/numa.py) right after its ``mmap``:
+before the fill touches a page, so nothing has to migrate, and before
+``cudaHostRegister`` locks the pages, after which they could not move.
+The ``MAP_HUGETLB`` slab takes the same bind. A refused bind is logged
+and leaves the slab unbound, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,7 +96,8 @@ class _Slab:
     slots' slab takes the hugepage ladder (``madvise`` not None)."""
 
     def __init__(self, count: int, nbytes: int,
-                 madvise: "set[str] | None" = None):
+                 madvise: "set[str] | None" = None,
+                 numa_zone: "int | None" = None):
         self.stride = stride = _align_up(max(nbytes, 1), SLOT_ALIGN)
         if madvise is None:
             self.mapping, self.hugepage_backed = \
@@ -98,6 +106,10 @@ class _Slab:
             self.mapping, self.hugepage_backed = _map_slab(stride * count,
                                                            madvise)
         self.base = ctypes.addressof(ctypes.c_char.from_buffer(self.mapping))
+        if numa_zone is not None:
+            # before any page is touched or locked (module docstring)
+            from .numa import mbind_buffer
+            mbind_buffer(self.base, len(self.mapping), numa_zone)
         self.registered = False
         self.whole = memoryview(self.mapping)
         self.views = [self.whole[i * stride: i * stride + nbytes]
@@ -145,9 +157,12 @@ class StagingPool:
     index (``views[i]``, the worker's ``% n_slots`` discipline)."""
 
     def __init__(self, n_slots: int, slot_size: int, *, fill_algo=None,
-                 madvise_flags: str = ""):
+                 madvise_flags: str = "",
+                 numa_zone: "int | None" = None):
         self.n_slots = max(n_slots, 0)
         self.slot_size = max(slot_size, 1)
+        #: the --zones zone every slab is bound to, or None
+        self.numa_zone = numa_zone
         self._slabs: "list[_Slab]" = []
         self._slots = None
         self.views: "list[memoryview]" = []
@@ -155,7 +170,8 @@ class StagingPool:
         self.hugepage_backed = False
         if self.n_slots:
             self._slots = _Slab(self.n_slots, self.slot_size,
-                                madvise=set(parse_flag_list(madvise_flags)))
+                                madvise=set(parse_flag_list(madvise_flags)),
+                                numa_zone=numa_zone)
             self._slabs.append(self._slots)
             self.views = self._slots.views
             self.hugepage_backed = self._slots.hugepage_backed
@@ -166,7 +182,7 @@ class StagingPool:
                 mv[:] = fill_algo.fill_buffer(self.slot_size)
 
     def _map(self, count: int, nbytes: int) -> _Slab:
-        slab = _Slab(count, nbytes)
+        slab = _Slab(count, nbytes, numa_zone=self.numa_zone)
         self._slabs.append(slab)
         return slab
 
@@ -187,8 +203,8 @@ class StagingPool:
 
     def alloc_aux(self, count: int, nbytes: int,
                   register: bool = False) -> "list[memoryview]":
-        """Carve `count` page-aligned buffers of `nbytes`, page-locked when
-        asked; freed by close()."""
+        """Carve `count` page-aligned buffers of `nbytes`, bound to the
+        pool's zone and page-locked when asked; freed by close()."""
         slab = self._map(count, nbytes)
         if register:
             slab.register()

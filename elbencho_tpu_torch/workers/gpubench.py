@@ -96,10 +96,17 @@ def select_collective_devices(cfg) -> "list[torch.device]":
     --gpuids subset of every device (ids modulo the device count,
     deduplicated; without --gpuids, every device). On the CPU, which a
     caller asks for with ``device="cpu"``, one slot per distinct --gpuids
-    id: the counterpart of the JAX package's virtual CPU devices."""
+    id, or without --gpuids as many as --meshshape covers (else one): the
+    counterpart of the JAX package's virtual CPU devices, which a mesh
+    without --tpuids spans whole."""
     ids = list(dict.fromkeys(cfg.gpu_ids))
     if cfg.device is not None and torch.device(cfg.device).type != "cuda":
-        return [torch.device(cfg.device)] * max(len(ids), 1)
+        slots = len(ids)
+        if not slots and cfg.mesh_shape_str:
+            from ..parallel.slice_phase import parse_mesh_shape
+            hosts, chips = parse_mesh_shape(cfg.mesh_shape_str)
+            slots = hosts * chips
+        return [torch.device(cfg.device)] * max(slots, 1)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "the collective mesh needs CUDA devices, but "
@@ -231,6 +238,16 @@ class CollectiveBench:
         """Allocate, build NCCL's communicator and run once outside any
         timed loop."""
         self.compute()
+
+    def equals_plain(self) -> bool:
+        """One step on the current ``arrays`` against collective_plain:
+        the permuted tensors device by device for ici, else the scalar."""
+        got = self.compute()
+        want = collective_plain(self.pattern, self.arrays)
+        if self.pattern == "ici":
+            return all(g.device == w.device and torch.equal(g, w)
+                       for g, w in zip(got, want))
+        return got == want
 
     def step(self) -> int:
         """One timed collective; returns the latency in usec. The ring

@@ -75,6 +75,14 @@ under ``--trunctosize``; ``--nodelerr`` lets every delete pass over a
 missing entry. The first three keep a phase out of the engine's per-file
 loop. The SYNC and DROPCACHES phases run on the first worker only.
 
+Preparation first binds the worker's thread (``_apply_core_binding``):
+under ``--cores`` to one core, else under ``--zones`` to the CPUs and the
+memory of one NUMA zone, round-robin by rank, as the JAX package does; a
+zone bound so also binds the worker's staging slabs (utils/numa.py,
+utils/staging_pool.py). It runs on the worker's own thread, so it binds
+that thread only: the ``--gpuslice`` feeders and the ``--gpubench``
+workers are bound like any other.
+
 The GPU data path replaces upstream elbencho's CUDA staging
 (allocGPUIOBuffer :1427-1537, cudaMemcpy wrappers :2437-2490): workers
 map to GPUs by ``rank % len(gpu_ids)`` and move blocks through a
@@ -105,7 +113,7 @@ from ..toolkits.offset_gen import (OffsetGenRandom, OffsetGenRandomAligned,
 from ..toolkits.ops_logger import OpsLogger
 from ..toolkits.random_algos import RandAlgoGoldenPrime, create_rand_algo
 from ..toolkits.rate_limiter import RateLimiter
-from ..toolkits.units import parse_flag_list
+from ..toolkits.units import parse_flag_list, parse_uint_list
 from ..utils.native import (ENGINE_CODES, NativeStreamError,
                             NativeVerifyError, _account_chunk,
                             get_native_engine)
@@ -134,6 +142,7 @@ class LocalWorker(Worker):
         # block overwritten while in flight (reference: allocIOBuffer x
         # iodepth, :1386)
         self._staging_pool = None
+        self._numa_zone = None  # set when --zones bound this worker
         self._io_bufs: "list[memoryview]" = []
         self._rand_offset_algo = None
         self._block_var_algo = None  # --blockvarpct refill (Python loop)
@@ -175,11 +184,12 @@ class LocalWorker(Worker):
 
     def prepare(self) -> None:
         cfg = self.cfg
+        self._apply_core_binding()
         from ..utils.staging_pool import MADVISE, StagingPool
         self._staging_pool = StagingPool(
             max(cfg.io_depth, 1), max(cfg.block_size, 1),
             fill_algo=RandAlgoGoldenPrime(seed=self.rank + 1),
-            madvise_flags=cfg.madvise_flags)
+            madvise_flags=cfg.madvise_flags, numa_zone=self._numa_zone)
         # the configuration refused any other name
         self._madvise = [MADVISE[name]
                          for name in parse_flag_list(cfg.madvise_flags)]
@@ -239,6 +249,31 @@ class LocalWorker(Worker):
         if cfg.ops_log_path:
             self._ops_log = OpsLogger(cfg.ops_log_path, self.rank,
                                       use_lock=cfg.ops_log_lock)
+
+    def _apply_core_binding(self) -> None:
+        """Round-robin worker -> core binding of the calling (worker)
+        thread (reference: elbencho_tpu/workers/local_worker.py
+        ``_apply_core_binding``): --cores pins it to one core; else
+        --zones binds its CPU affinity and memory policy to one NUMA zone,
+        kept in ``_numa_zone`` for the staging slabs when the bind
+        succeeded. --cores wins when both are given. A list that does not
+        parse raises, failing the worker's preparation."""
+        cfg = self.cfg
+        if cfg.cpu_cores_str:
+            cores = parse_uint_list(cfg.cpu_cores_str)
+            if cores:
+                core = cores[self.rank % len(cores)]
+                try:
+                    os.sched_setaffinity(0, {core})
+                except OSError as err:
+                    logger.log_error(f"core binding failed: {err}")
+        elif cfg.numa_zones_str:
+            from ..utils.numa import bind_to_numa_zone
+            zones = parse_uint_list(cfg.numa_zones_str)
+            if zones:
+                zone = zones[self.rank % len(zones)]
+                if bind_to_numa_zone(zone):
+                    self._numa_zone = zone
 
     def _prepare_path_fds(self) -> None:
         """File/blockdev mode fds: the manager's shared ones, or under

@@ -59,6 +59,7 @@ def test_importing_the_cli_loads_no_jax():
     code = ("import sys, elbencho_tpu_torch.cli, "
             "elbencho_tpu_torch.cuda.device, elbencho_tpu_torch.ops.verify, "
             "elbencho_tpu_torch.coordinator, elbencho_tpu_torch.utils.native, "
+            "elbencho_tpu_torch.utils.numa, "
             "elbencho_tpu_torch.workers.local_worker, "
             "elbencho_tpu_torch.workers.gpubench, "
             "elbencho_tpu_torch.workers.gpuslice, "
